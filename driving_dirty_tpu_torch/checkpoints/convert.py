@@ -4,33 +4,56 @@ The JAX package stores (params, state) pytrees of arrays (checkpoints/io.py);
 this package's modules carry the same weights in PyTorch layouts, under the
 same paths joined by dots:
 
-  Conv2d     params {"w": HWIO, "b"}  <-> "<path>.weight" OIHW, "<path>.bias"
-             (transpose 3, 2, 0, 1). The trunk kernel re-lays OIHW as HWIO
-             itself, per call (kernels/trunk.py).
-  Linear     params {"w": [in, out], "b"} <-> "<path>.weight" [out, in], ".bias"
-  BatchNorm  params {"scale", "bias"} <-> "<path>.weight", "<path>.bias";
-             state {"mean", "var"} <-> "<path>.running_mean", ".running_var"
+  Conv2d           params {"w": HWIO, "b"} <-> "<path>.weight" OIHW, "<path>.bias"
+                   (transpose 3, 2, 0, 1). The trunk kernel re-lays OIHW as
+                   HWIO itself, per call (kernels/trunk.py).
+  ConvTranspose2d  params {"w": HWIO [kh, kw, in, out], "b"} <-> "<path>.weight"
+                   [in, out, kh, kw] (transpose 2, 3, 0, 1; no flip: the JAX
+                   package flips the taps inside its apply, torch's
+                   conv_transpose2d does the same internally).
+  Linear           params {"w": [in, out], "b"} <-> "<path>.weight" [out, in], ".bias"
+  BatchNorm        params {"scale", "bias"} <-> "<path>.weight", "<path>.bias";
+                   state {"mean", "var"} <-> "<path>.running_mean", ".running_var"
+
+A conv and a transposed conv weight are both 4-d, and a square one (the
+32->32 `ss_deconv`) even has the same shape either way, so the layout is
+never guessed from the array: the caller names the module paths that hold
+a ConvTranspose2d (`transposed`, e.g. `transposed_paths(model)`), and every
+other 4-d weight is a conv. `load_jax_weights` does this for a model.
 
 This is the inverse of the JAX package's import of the reference's torch
-checkpoints, restricted to the layer kinds this package has so far
-(ConvTranspose2d comes with the Decoder).
+checkpoints, restricted to the layer kinds this package has so far.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from driving_dirty_tpu_torch.core.layers import ConvTranspose2d
+
+_CONV_TO_TORCH = (3, 2, 0, 1)   # HWIO -> OIHW
+_CONV_TO_JAX = (2, 3, 1, 0)     # OIHW -> HWIO
+_CONVT = (2, 3, 0, 1)           # HWIO <-> [in, out, kh, kw], either way
+
 
 def _tensor(a):
     return torch.from_numpy(np.array(a, order="C"))  # a writable copy
 
 
-def _params(tree, prefix, out):
+def transposed_paths(module) -> frozenset[str]:
+    """Dotted paths of the ConvTranspose2d modules inside `module`."""
+    return frozenset(name for name, m in module.named_modules() if isinstance(m, ConvTranspose2d))
+
+
+def _params(tree, prefix, out, transposed, seen):
     keys = set(tree)
     if keys in ({"w", "b"}, {"w"}) and not isinstance(tree["w"], dict):
         w = np.asarray(tree["w"])
+        path = prefix[:-1]
         if w.ndim == 4:
-            out[f"{prefix}weight"] = _tensor(w.transpose(3, 2, 0, 1))
+            perm = _CONVT if path in transposed else _CONV_TO_TORCH
+            seen.add(path)
+            out[f"{prefix}weight"] = _tensor(w.transpose(perm))
         elif w.ndim == 2:
             out[f"{prefix}weight"] = _tensor(w.T)
         else:
@@ -44,7 +67,7 @@ def _params(tree, prefix, out):
         for k, v in tree.items():
             if not isinstance(v, dict):
                 raise ValueError(f"{prefix}{k}: leaf outside a conv, linear or batch-norm node")
-            _params(v, f"{prefix}{k}.", out)
+            _params(v, f"{prefix}{k}.", out, transposed, seen)
 
 
 def _state(tree, prefix, out):
@@ -58,10 +81,19 @@ def _state(tree, prefix, out):
         _state(v, f"{prefix}{k}.", out)
 
 
-def from_jax(params, state=None) -> dict:
-    """JAX (params, state) pytrees of arrays -> a state_dict of CPU tensors."""
+def _check_transposed(transposed, seen):
+    stray = set(transposed) - set(seen)
+    if stray:
+        raise KeyError(f"transposed-conv paths with no 4-d weight: {sorted(stray)}")
+
+
+def from_jax(params, state=None, *, transposed=()) -> dict:
+    """JAX (params, state) pytrees of arrays -> a state_dict of CPU tensors.
+    `transposed`: the dotted paths whose 4-d weight is a ConvTranspose2d."""
     out: dict = {}
-    _params(params, "", out)
+    seen: set = set()
+    _params(params, "", out, frozenset(transposed), seen)
+    _check_transposed(transposed, seen)
     if state:
         _state(state, "", out)
     return out
@@ -74,11 +106,13 @@ def _put(tree, path, leaf):
     tree[last] = leaf
 
 
-def to_jax(state_dict) -> tuple[dict, dict]:
-    """A state_dict -> JAX (params, state) pytrees of numpy arrays."""
+def to_jax(state_dict, *, transposed=()) -> tuple[dict, dict]:
+    """A state_dict -> JAX (params, state) pytrees of numpy arrays.
+    `transposed`: the dotted paths whose 4-d weight is a ConvTranspose2d."""
     sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
     params: dict = {}
     state: dict = {}
+    seen: set = set()
     for key, v in sd.items():
         prefix, _, name = key.rpartition(".")
         bn = f"{prefix}.running_mean" in sd
@@ -89,11 +123,32 @@ def to_jax(state_dict) -> tuple[dict, dict]:
         elif bn:
             _put(params, f"{prefix}.{'scale' if name == 'weight' else 'bias'}", v)
         elif name == "weight" and v.ndim == 4:
-            _put(params, f"{prefix}.w", np.ascontiguousarray(v.transpose(2, 3, 1, 0)))
+            seen.add(prefix)
+            perm = _CONVT if prefix in transposed else _CONV_TO_JAX
+            _put(params, f"{prefix}.w", np.ascontiguousarray(v.transpose(perm)))
         elif name == "weight" and v.ndim == 2:
             _put(params, f"{prefix}.w", np.ascontiguousarray(v.T))
         elif name == "bias":
             _put(params, f"{prefix}.b", v)
         else:
             raise ValueError(f"{key}: no JAX layout for this entry")
+    _check_transposed(transposed, seen)
     return params, state
+
+
+def model_to_jax(model) -> tuple[dict, dict]:
+    """A module's weights -> JAX (params, state), transposed convs included."""
+    return to_jax(model.state_dict(), transposed=transposed_paths(model))
+
+
+def load_jax_weights(model, params, state=None, *, what="checkpoint"):
+    """Fill `model` from JAX (params, state) pytrees, laying out each 4-d
+    weight by the kind of module that owns it. A checkpoint without BN state
+    keeps the fresh running stats, as the JAX package does; any other
+    missing or unexpected entry raises KeyError naming `what`."""
+    sd = from_jax(params, state, transposed=transposed_paths(model))
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    bad = [k for k in missing if not k.endswith(("running_mean", "running_var"))]
+    if bad or unexpected:
+        raise KeyError(f"{what}: missing {bad}, unexpected {unexpected}")
+    return model

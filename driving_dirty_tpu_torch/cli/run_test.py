@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from driving_dirty_tpu_torch.checkpoints import io as ckpt_io
-from driving_dirty_tpu_torch.checkpoints.convert import from_jax
+from driving_dirty_tpu_torch.checkpoints.convert import load_jax_weights
 from driving_dirty_tpu_torch.core.device import resolve_device
 from driving_dirty_tpu_torch.data.dataset import LABELED_SCENES, NUM_SAMPLE_PER_SCENE, LabeledDataset
 from driving_dirty_tpu_torch.data.pipeline import Loader, device_prefetch
@@ -38,13 +38,7 @@ def load_roadmap_model(ckpt_path, precision=None, device=None):
     if precision is not None:
         hparams["precision"] = precision
     model = RoadMapBCEv2(hparams, device=device)
-    sd = from_jax(blob["params"], blob["state"])
-    # a checkpoint without BN state keeps the fresh running stats, as the
-    # JAX package does
-    missing, unexpected = model.load_state_dict(sd, strict=False)
-    bad = [k for k in missing if not k.endswith(("running_mean", "running_var"))]
-    if bad or unexpected:
-        raise KeyError(f"{ckpt_path}: missing {bad}, unexpected {unexpected}")
+    load_jax_weights(model, blob["params"], blob["state"], what=str(ckpt_path))
     return model.eval().requires_grad_(False)
 
 

@@ -1,8 +1,9 @@
 """Layers with the JAX package's numerics (driving_dirty_tpu/core/layers.py).
 
-Activations keep the JAX layouts at the module boundary: NHWC for Conv2d,
-[..., features] for Linear and BatchNorm. Weights use PyTorch layouts
-(OIHW conv, [out, in] linear); checkpoints/convert.py maps between them.
+Activations keep the JAX layouts at the module boundary: NHWC for Conv2d
+and ConvTranspose2d, [..., features] for Linear and BatchNorm. Weights use
+PyTorch layouts (OIHW conv, [in, out, kh, kw] transposed conv, [out, in]
+linear); checkpoints/convert.py maps between them.
 Weights are cast to the activation dtype before use, so bf16 activations
 with f32 parameters compute in bf16, as in the JAX package.
 
@@ -37,22 +38,53 @@ class Linear(nn.Module):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
-class Conv2d(nn.Module):
-    """NHWC conv with an OIHW weight; torch.nn.Conv2d shape semantics."""
+def _pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, *, device=None, generator=None):
+
+class Conv2d(nn.Module):
+    """NHWC conv with an OIHW weight; torch.nn.Conv2d shape semantics.
+    kernel_size, stride, padding and dilation are an int or an (h, w) pair."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
+                 padding=0, dilation=1, *, device=None, generator=None):
         super().__init__()
-        fan_in = in_channels * kernel_size * kernel_size
-        bound = math.sqrt(1.0 / fan_in)
-        self.stride, self.padding = stride, padding
-        self.weight = _uniform((out_channels, in_channels, kernel_size, kernel_size),
-                               bound, device, generator)
+        kh, kw = _pair(kernel_size)
+        bound = math.sqrt(1.0 / (in_channels * kh * kw))
+        self.stride, self.padding, self.dilation = _pair(stride), _pair(padding), _pair(dilation)
+        self.weight = _uniform((out_channels, in_channels, kh, kw), bound, device, generator)
         self.bias = _uniform((out_channels,), bound, device, generator)
 
     def forward(self, x):
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), self.bias.to(x.dtype),
-                     stride=self.stride, padding=self.padding)
+                     stride=self.stride, padding=self.padding, dilation=self.dilation)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose2d(nn.Module):
+    """NHWC transposed conv with torch.nn.ConvTranspose2d semantics and its
+    weight layout [in, out, kh, kw]:
+
+        out = (in - 1) * stride - 2 * padding + dilation * (k - 1) + output_padding + 1
+
+    Init fan-in is out_channels * kh * kw, as torch's (and the JAX package's).
+    An ordinary conv that the JAX package leaves to XLA: it runs through
+    F.conv_transpose2d (cuDNN on the card)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, *, device=None, generator=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        bound = math.sqrt(1.0 / (out_channels * kh * kw))
+        self.stride, self.padding = _pair(stride), _pair(padding)
+        self.output_padding, self.dilation = _pair(output_padding), _pair(dilation)
+        self.weight = _uniform((in_channels, out_channels, kh, kw), bound, device, generator)
+        self.bias = _uniform((out_channels,), bound, device, generator)
+
+    def forward(self, x):
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                               self.bias.to(x.dtype), stride=self.stride, padding=self.padding,
+                               output_padding=self.output_padding, dilation=self.dilation)
         return y.permute(0, 2, 3, 1)
 
 

@@ -51,6 +51,17 @@ def _load_sample_images(path, raw_uint8: bool):
     return np.stack([_load_image(os.path.join(path, n), raw_uint8) for n in IMAGE_NAMES])
 
 
+def scene_split(scene_index, train_frac=0.8, seed=None, shuffle=True):
+    """Scene-level train/val split (a sample-level split leaks scenes across
+    it): shuffled with numpy's RandomState(seed), as the JAX package does."""
+    idx = np.array(scene_index).copy()
+    if shuffle:
+        rng = np.random.RandomState(seed) if seed is not None else np.random
+        rng.shuffle(idx)
+    n_train = round(train_frac * len(idx))
+    return idx[:n_train], idx[n_train:]
+
+
 @dataclass
 class LabeledDataset:
     """Labeled scenes: images + padded boxes/categories + road map.

@@ -8,7 +8,8 @@ interface (no PyTorch headers, so a build takes seconds):
 
 The library lands in `build/` at the root of the checkout, named by a hash of
 the sources and flags, so an edited source builds anew and an unchanged one
-loads from disk. A missing nvcc or a failed build raises; nothing falls back.
+loads from disk. `load_libraries` starts one nvcc per source at once. A
+missing nvcc or a failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -45,21 +46,36 @@ def library_path(name: str) -> Path:
     return BUILD / f"lib{name}-{digest}.so"
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build csrc/<name>.cu if its library is not in build/ yet, and load it."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    so = library_path(name)
-    if not so.exists():
+def load_libraries(names) -> dict[str, ctypes.CDLL]:
+    """Build every csrc/<name>.cu whose library is not in build/ yet, with one
+    nvcc process per source, all started together, and load them all."""
+    names = list(names)
+    builds = {}
+    for name in names:
+        so = library_path(name)
+        if name in _LIBS or so.exists() or name in builds:
+            continue
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        builds[name] = (so, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (so, tmp, proc) in builds.items():
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {name}.cu:\n{proc.stderr}")
-        BUILD_LOG[name] = proc.stderr
+            failed.append(f"{name}.cu:\n{err}")
+            continue
+        BUILD_LOG[name] = err
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    _LIBS[name] = lib
-    return lib
+    if failed:
+        raise RuntimeError("nvcc failed to build " + "\n".join(failed))
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return {name: _LIBS[name] for name in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build csrc/<name>.cu if its library is not in build/ yet, and load it."""
+    return load_libraries([name])[name]

@@ -25,7 +25,7 @@ class BasicAE(Task):
         self.batch_size = hp(h, "batch_size", 16)
         self.in_channels = hp(h, "in_channels", 3)
 
-    def build_encoder(self, *, device=None, generator=None) -> Encoder:
+    def build_encoder(self, *, dense: bool = True, device=None, generator=None) -> Encoder:
         return Encoder(self.hidden_dim, self.latent_dim, self.in_channels,
-                       self.input_height, self.input_width,
+                       self.input_height, self.input_width, dense=dense,
                        device=device, generator=generator)

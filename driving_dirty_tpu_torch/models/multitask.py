@@ -1,0 +1,94 @@
+"""Joint multi-task model: one shared SSL encoder pass -> roadmap and
+box-occupancy heads (driving_dirty_tpu/models/multitask.py; BASELINE.json
+config 5).
+
+The encoder runs once per batch (`with_c3`): its latent feeds the roadmap
+head (Linear latent -> 640000, 800x800 logits), its c3 feature map feeds
+the spatial box pipeline (SpatialMappingCNN + BoxesMergingCNN). Box targets
+are rasterized by kernel B2. Freezing and the sharding rules come with
+training.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from driving_dirty_tpu_torch.core import layers as L
+from driving_dirty_tpu_torch.core.device import resolve_device
+from driving_dirty_tpu_torch.metrics.threat import ts_road_map
+from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin
+from driving_dirty_tpu_torch.models.precision import compute_dtype
+from driving_dirty_tpu_torch.models.pretrained import init_backbone, load_pretrained_ae
+from driving_dirty_tpu_torch.models.roadmap import MAP_PIXELS, RoadMapBCE
+from driving_dirty_tpu_torch.models.spatial_bb import _bce_probs, box_targets
+from driving_dirty_tpu_torch.nn.spatial import BoxesMergingCNN, SpatialMappingCNN
+from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
+from driving_dirty_tpu_torch.train.task import Task, hp
+
+
+class MultiTask(LabeledDataMixin, Task, nn.Module):
+    name = "multitask"
+
+    def __init__(self, hparams=None, *, device=None, generator=None):
+        nn.Module.__init__(self)
+        Task.__init__(self, hparams)
+        h = self.hparams
+        device = resolve_device(device)
+        kw = dict(device=device, generator=generator)
+        self.compute_dtype = compute_dtype(hp(h, "precision", 32))
+        self.batch_size = hp(h, "batch_size", 16)
+        self.box_loss_weight = hp(h, "box_loss_weight", 1.0)
+        self.ae, ae_weights = load_pretrained_ae(h)
+        self.latent_dim = self.ae.latent_dim
+        self.encoder = init_backbone(self.ae, ae_weights, **kw)
+        self.rm_head = L.Linear(self.latent_dim, MAP_PIXELS, **kw)
+        # "small" geometry shrinks the box pipeline; the roadmap head stays 800x800
+        self.geometry = hp(h, "spatial_geometry", "reference")
+        self.space_map_cnn = SpatialMappingCNN(self.geometry, **kw)
+        self.box_merge = BoxesMergingCNN(self.geometry, **kw)
+        self.raster_size = self.box_merge.raster_size
+
+    def forward(self, images):
+        """-> (rm_logits [b, 800, 800], box_probs [b, R, R]), both f32, from one
+        encoder pass (the conv trunk runs once)."""
+        images = normalize_images(images, self.compute_dtype)
+        z, ssr = self.encoder(wide_stitch(images), with_c3=True)
+        rm_logits = self.rm_head(z).reshape(z.shape[0], 800, 800).float()
+        # the box head runs in the compute dtype; only its output is promoted
+        spatial = self.space_map_cnn(images)
+        box_probs = self.box_merge(ssr, spatial)[..., 0].float()
+        return rm_logits, box_probs
+
+    @torch.no_grad()
+    def predict(self, images):
+        """Inference entry: -> {"road_mask": [b, 800, 800] binary f32 (logits
+        > 0), "box_occupancy": [b, R, R] probabilities}, one encoder pass."""
+        self.eval()
+        rm_logits, box_probs = self(images)
+        return {"road_mask": (rm_logits > 0).float(), "box_occupancy": box_probs}
+
+    def _box_targets(self, batch):
+        return box_targets(batch, self.raster_size)
+
+    def _losses(self, batch):
+        rm_logits, box_probs = self(batch["images"])
+        box_t = self._box_targets(batch)
+        rm_loss = RoadMapBCE._bce(rm_logits, batch["road"])
+        box_loss = _bce_probs(box_probs, box_t)
+        return rm_logits, box_probs, box_t, rm_loss, box_loss
+
+    def loss(self, batch, *, train: bool):
+        self.train(train)
+        _, _, _, rm_loss, box_loss = self._losses(batch)
+        return rm_loss + self.box_loss_weight * box_loss, {"rm_loss": rm_loss, "box_loss": box_loss}
+
+    @torch.no_grad()
+    def val_metrics(self, batch):
+        self.eval()
+        rm_logits, box_probs, box_t, rm_loss, box_loss = self._losses(batch)
+        return {
+            "val_loss": rm_loss + self.box_loss_weight * box_loss,
+            "val_rm_ts_rounded": ts_road_map(batch["road"], (rm_logits > 0).float()),
+            "val_box_loss": box_loss,
+            "val_ts_boxes": ts_road_map(box_t, torch.round(box_probs)),
+        }

@@ -3,25 +3,26 @@
 
 The checkpoint's embedded hparams rebuild the encoder; its weights come
 along. With no `pretrained_path` the encoder is initialized from the
-caller's generator, with the caller-supplied dims.
+caller's generator, with the caller-supplied dims. `c3_only` builds the
+conv trunk alone, for backbones that tap the c3 feature map.
 """
 from __future__ import annotations
 
 from driving_dirty_tpu_torch.checkpoints import io as ckpt_io
-from driving_dirty_tpu_torch.checkpoints.convert import from_jax
+from driving_dirty_tpu_torch.checkpoints.convert import load_jax_weights
 from driving_dirty_tpu_torch.models.basic_ae import BasicAE
 from driving_dirty_tpu_torch.train.task import hp
 
 
 def load_pretrained_ae(hparams):
-    """-> (BasicAE, encoder state_dict or None). The state_dict is None when
-    no checkpoint is given; init_backbone then initializes fresh."""
+    """-> (BasicAE, the encoder's JAX (params, state) pytrees or None). The
+    weights are None when no checkpoint is given; init_backbone then
+    initializes fresh."""
     path = hp(hparams, "pretrained_path", None)
     if path:
         blob = ckpt_io.load(path)
         state = blob.get("state") or {}
-        sd = from_jax(blob["params"]["encoder"], state.get("encoder"))
-        return BasicAE(blob["hparams"]), sd
+        return BasicAE(blob["hparams"]), (blob["params"]["encoder"], state.get("encoder"))
     ae = BasicAE(
         dict(
             hidden_dim=hp(hparams, "ae_hidden_dim", 128),
@@ -34,14 +35,19 @@ def load_pretrained_ae(hparams):
     return ae, None
 
 
-def init_backbone(ae, state_dict, *, device=None, generator=None):
-    """-> the Encoder module, with the checkpoint's weights when given."""
-    enc = ae.build_encoder(device=device, generator=generator)
-    if state_dict is not None:
-        # a checkpoint without BN state keeps the fresh running stats, as the
-        # JAX package does
-        missing, unexpected = enc.load_state_dict(state_dict, strict=False)
-        bad = [k for k in missing if not k.endswith(("running_mean", "running_var"))]
-        if bad or unexpected:
-            raise KeyError(f"encoder checkpoint mismatch: missing {bad}, unexpected {unexpected}")
+_C3_KEYS = ("c1", "c2", "c3")
+
+
+def init_backbone(ae, weights, *, c3_only: bool = False, device=None, generator=None):
+    """-> the Encoder module, with the checkpoint's weights when given.
+
+    c3_only=True keeps only the conv trunk (c1/c2/c3) and drops the dense
+    latent path, as the JAX package's init_backbone(..., c3_only=True) drops
+    its params: the spatial and detection backbones never evaluate it."""
+    enc = ae.build_encoder(dense=not c3_only, device=device, generator=generator)
+    if weights is not None:
+        params, state = weights
+        if c3_only:
+            params, state = {k: v for k, v in params.items() if k in _C3_KEYS}, None
+        load_jax_weights(enc, params, state, what="pretrained encoder")
     return enc

@@ -35,9 +35,9 @@ class RoadMapBase(Task, nn.Module):
         h = self.hparams
         device = resolve_device(device)
         self.compute_dtype = compute_dtype(hp(h, "precision", 32))
-        self.ae, ae_sd = load_pretrained_ae(h)
+        self.ae, ae_weights = load_pretrained_ae(h)
         self.latent_dim = self.ae.latent_dim
-        self.encoder = init_backbone(self.ae, ae_sd, device=device, generator=generator)
+        self.encoder = init_backbone(self.ae, ae_weights, device=device, generator=generator)
         self.fc1 = L.Linear(self.latent_dim, MAP_PIXELS, device=device, generator=generator)
 
     def forward(self, images):

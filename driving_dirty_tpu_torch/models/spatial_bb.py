@@ -1,0 +1,122 @@
+"""Spatial occupancy-map box tasks (driving_dirty_tpu/models/spatial_bb.py).
+
+  BBSpatialModel   ("spatial_bb"): SpatialMappingCNN + the SSL encoder's c3
+                   feature tap (a c3-only backbone) -> BoxesMergingCNN ->
+                   [b, R, R] occupancy probabilities; targets are the boxes
+                   rasterized by kernel B2; BCE (or MSE with `mse_loss`) on
+                   probabilities.
+  BBSpatialRoadMap ("spatial_rm"): adds the road map as an input branch
+                   (RoadMapBoxesMergingCNN).
+
+R is the geometry's raster size (800 at "reference"). Images are
+[b, 6, H, W, 3] NHWC (uint8 or float), boxes [b, max_bb, 2, 4] meters with
+box_valid [b, max_bb], road [b, 800, 800]. Freezing, image logging and the
+sharding rules come with training.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from driving_dirty_tpu_torch.core.device import resolve_device
+from driving_dirty_tpu_torch.kernels.raster import raster
+from driving_dirty_tpu_torch.metrics.threat import ts_road_map
+from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin
+from driving_dirty_tpu_torch.models.precision import compute_dtype
+from driving_dirty_tpu_torch.models.pretrained import init_backbone, load_pretrained_ae
+from driving_dirty_tpu_torch.nn.spatial import (
+    BoxesMergingCNN,
+    RoadMapBoxesMergingCNN,
+    SpatialMappingCNN,
+)
+from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
+from driving_dirty_tpu_torch.train.task import Task, hp
+
+
+def _bce_probs(probs, target, eps=1e-7):
+    """F.binary_cross_entropy on probabilities, mean reduction, written out
+    as the JAX package writes it."""
+    p = torch.clamp(probs, eps, 1 - eps)
+    return -torch.mean(target * torch.log(p) + (1 - target) * torch.log1p(-p))
+
+
+def box_targets(batch, size: int):
+    """The batch's boxes as [b, size, size] {0,1} maps: kernel B2 on a CUDA
+    tensor, its plain version on a CPU tensor."""
+    return raster(batch["boxes"], batch["box_valid"], size)
+
+
+class BBSpatialModel(LabeledDataMixin, Task, nn.Module):
+    name = "spatial_bb"
+    merge_cls = BoxesMergingCNN
+    uses_roadmap = False
+
+    def __init__(self, hparams=None, *, device=None, generator=None):
+        nn.Module.__init__(self)
+        Task.__init__(self, hparams)
+        h = self.hparams
+        device = resolve_device(device)
+        kw = dict(device=device, generator=generator)
+        self.compute_dtype = compute_dtype(hp(h, "precision", 32))
+        self.batch_size = hp(h, "batch_size", 16)
+        self.mse_loss = hp(h, "mse_loss", False)
+        self.ae, ae_weights = load_pretrained_ae(h)
+        self.geometry = hp(h, "spatial_geometry", "reference")
+        # c3_only: this backbone taps the conv feature map only
+        self.encoder = init_backbone(self.ae, ae_weights, c3_only=True, **kw)
+        self.space_map_cnn = SpatialMappingCNN(self.geometry, **kw)
+        self.box_merge = self.merge_cls(self.geometry, **kw)
+        self.raster_size = self.box_merge.raster_size
+
+    def forward(self, images, road=None):
+        """[b, 6, H, W, C] (+ road [b, 800, 800]) -> occupancy probabilities
+        [b, R, R] f32 (losses and metrics in f32)."""
+        images = normalize_images(images, self.compute_dtype)
+        spatial = self.space_map_cnn(images)
+        ssr = self.encoder(wide_stitch(images), c3_only=True)
+        if self.uses_roadmap:
+            probs = self.box_merge(ssr, spatial, road[..., None].to(spatial.dtype))
+        else:
+            probs = self.box_merge(ssr, spatial)
+        return probs[..., 0].float()
+
+    @torch.no_grad()
+    def predict(self, images, road=None):
+        """Inference entry: -> occupancy probabilities [b, R, R] (not a
+        thresholded mask: callers pick their operating point). Eval mode."""
+        self.eval()
+        return self(images, road if self.uses_roadmap else None)
+
+    def _targets(self, batch):
+        return box_targets(batch, self.raster_size)
+
+    def _loss(self, probs, target):
+        if self.mse_loss:
+            return torch.mean((probs - target) ** 2)
+        return _bce_probs(probs, target)
+
+    def loss(self, batch, *, train: bool):
+        self.train(train)
+        target = self._targets(batch)
+        probs = self(batch["images"], batch["road"] if self.uses_roadmap else None)
+        return self._loss(probs, target), {}
+
+    @torch.no_grad()
+    def val_metrics(self, batch):
+        """Eval loss and the threat score of the rounded prediction against
+        the rasterized boxes."""
+        self.eval()
+        target = self._targets(batch)
+        probs = self(batch["images"], batch["road"] if self.uses_roadmap else None)
+        return {
+            "val_loss": self._loss(probs, target),
+            "val_ts_boxes": ts_road_map(target, torch.round(probs)),
+        }
+
+
+class BBSpatialRoadMap(BBSpatialModel):
+    """spatial_rm: + the road map as an input branch."""
+
+    name = "spatial_rm"
+    merge_cls = RoadMapBoxesMergingCNN
+    uses_roadmap = True

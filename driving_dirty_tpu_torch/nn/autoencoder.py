@@ -35,11 +35,15 @@ class DenseBlock(nn.Module):
 class Encoder(nn.Module):
     """[b, H, W, C] NHWC -> latent [b, latent_dim]; `c3_only` returns the c3
     feature map [b, (H+1)//2, (W+1)//2, 32] (the backbone tap), `with_c3`
-    returns (z, c3) from one trunk pass."""
+    returns (z, c3) from one trunk pass.
+
+    `dense=False` builds the conv trunk alone (c1, c2, c3), for backbones
+    that only tap c3: the dense latent path is then absent (at full width
+    fc1 alone is 940032x128, 481 MB in f32) and only `c3_only` calls work."""
 
     def __init__(self, hidden_dim: int, latent_dim: int, in_channels: int = 3,
                  input_height: int = 256, input_width: int = 306 * 6,
-                 pooling_size: int = 4, drop_p: float = 0.2, *,
+                 pooling_size: int = 4, drop_p: float = 0.2, *, dense: bool = True,
                  device=None, generator=None):
         super().__init__()
         self.hidden_dim, self.latent_dim = hidden_dim, latent_dim
@@ -50,6 +54,9 @@ class Encoder(nn.Module):
         self.c1 = L.Conv2d(in_channels, TRUNK_C, 3, 1, 1, **kw)
         self.c2 = L.Conv2d(TRUNK_C, TRUNK_C, 3, 1, 1, **kw)
         self.c3 = L.Conv2d(TRUNK_C, TRUNK_C, 3, 2, 1, **kw)
+        self.dense = dense
+        if not dense:
+            return
         self.fc1 = DenseBlock(self.conv_out_dim(), hidden_dim, drop_p, **kw)
         self.fc2 = DenseBlock(hidden_dim, hidden_dim, drop_p, **kw)
         self.fc_z_out = L.Linear(hidden_dim, latent_dim, **kw)
@@ -71,6 +78,8 @@ class Encoder(nn.Module):
                   self.c3.weight, self.c3.bias)
         if c3_only:
             return x
+        if not self.dense:
+            raise ValueError("this encoder holds the conv trunk only: call it with c3_only=True")
         c3_map = x
         # torch flattens NCHW-contiguously (components.py:46); the fc1 weight
         # rows follow that order.

@@ -7,10 +7,11 @@ they are absent (the card's machine):
     python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest -p no:cacheprovider
 
 The `gpu` tests decide inside the test whether a card exists and skip
-without one. Tolerances as in chip_smoke.py, scaled by max|plain|: f32 2e-4
-(f32 sums in another order; cuDNN with TF32 off), bf16 2^-6 (c1, c2 and c3
-rounded to bf16 at the same points from sums in another order: 2 to 4 bf16
-ulps at the largest output).
+without one. Trunk tolerances as in chip_smoke.py, scaled by max|plain|:
+f32 2e-4 (f32 sums in another order; cuDNN with TF32 off), bf16 2^-6 (c1,
+c2 and c3 rounded to bf16 at the same points from sums in another order:
+2 to 4 bf16 ulps at the largest output). The box rasterizer must equal its
+plain version exactly: 0 differing pixels.
 """
 import ast
 from pathlib import Path
@@ -19,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from driving_dirty_tpu_torch.data.boxes import box_scenes
+from driving_dirty_tpu_torch.kernels import raster as R
 from driving_dirty_tpu_torch.kernels import trunk as K
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -60,6 +63,43 @@ def test_trunk_kernel_rejects_what_it_does_not_take():
         K.trunk(torch.zeros(1, 8, 16, 3, device="cuda")[:, :, ::2], *ws)
     with pytest.raises(NotImplementedError):
         K.trunk(torch.zeros(1, 8, 8, 3, device="cuda", requires_grad=True), *ws)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [800, 157])
+def test_raster_kernel_equals_plain_on_gpu(size):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    boxes, valid = (torch.from_numpy(a).cuda() for a in box_scenes(0, batch=8, max_bb=100))
+    launches = R.raster.launches
+    got = R.raster(boxes, valid, size)
+    ref = R.raster_plain(boxes, valid, size)
+    torch.cuda.synchronize()
+    assert R.raster.launches == launches + 1
+    assert got.shape == ref.shape == (8, size, size)
+    assert int((got != ref).sum()) == 0 and ref.sum() > 0
+
+
+@pytest.mark.gpu
+def test_raster_kernel_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    boxes, valid = torch.zeros(2, 3, 2, 4, device="cuda"), torch.ones(2, 3, dtype=torch.bool, device="cuda")
+    with pytest.raises(TypeError):
+        R.raster(boxes.double(), valid, 8)
+    with pytest.raises(TypeError):
+        R.raster(boxes, valid.float(), 8)
+    with pytest.raises(ValueError):
+        R.raster(boxes[:, :, :, :3], valid, 8)
+    with pytest.raises(ValueError):
+        R.raster(boxes, valid[:, :2], 8)
+    with pytest.raises(ValueError):
+        R.raster(boxes.transpose(0, 1), valid.t(), 8)
+    with pytest.raises(ValueError):
+        R.raster(boxes, valid, 0)
+    with pytest.raises(ValueError):
+        R.raster(torch.zeros(65536, 1, 2, 4, device="cuda"),
+                 torch.zeros(65536, 1, dtype=torch.bool, device="cuda"), 8)
 
 
 def _imports(path):
