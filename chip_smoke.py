@@ -38,7 +38,27 @@
    the targets must be equal. Then a full-width BBSpatialModel (c3-only
    backbone: no fc weights) and a BBSpatialRoadMap, one `predict` and one
    `val_metrics` each at precision 32, with the same checks.
-6. Prints the card's name and power limit, one JSON line of kernel records,
+6. RoIAlign kernel phase (B3): features [8, 400, 400, 32] in f32 and bf16
+   and 1000 seeded rois an image (data/boxes.py:detection_rois: sides 16-512
+   px in the 800-px image, some across its edge, some of zero size),
+   spatial_scale 0.5: the kernel against its plain version, then its device
+   time (torch.profiler), its time per call back to back, the plain
+   version's, the two-call grid_sample + avg_pool2d yardstick's, and the
+   bound from the feature pixels these rois touch. Also three odd shapes.
+7. Detection phase: a full-width FasterRCNNRoadMap (the JAX package's
+   defaults: 800-px layout image, anchors 32..512 x {0.5, 1, 2}, 2000
+   pre-NMS and 1000 post-NMS proposals, mlp 1024, 9 classes) from a seed,
+   written with export.save_task_ckpt and loaded back through
+   cli.eval_boxes.load_detection_task, at precision 32 and 16: one warm-up
+   and 5 timed `predict` requests of 8 uint8 scenes and their road maps
+   under torch.profiler, then `host_val_metrics` on 2 batches of 8 seeded
+   scenes with categories. Each `predict` must launch the trunk (at
+   [8, 800, 800, 3]) and RoIAlign once each; each `host_val_metrics` twice
+   each (predict and the diagnostics pass). The RPN outputs, RoIAlign's
+   output and the class posteriors on the same rois, and the detections
+   are held against the same model with the plain kernels patched in. Then
+   a BBFasterRCNN: one `predict` and one `host_val_metrics` at precision 32.
+8. Prints the card's name and power limit, one JSON line of kernel records,
    and last the JSON line {"ok": true, "device": {...}}.
 
 TF32 is off for cuDNN and cuBLAS in every phase (printed at each).
@@ -62,23 +82,28 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from driving_dirty_tpu_torch.cli.eval_boxes import load_detection_task
 from driving_dirty_tpu_torch.cli.run_test import load_roadmap_model
 from driving_dirty_tpu_torch.core import layers as L
-from driving_dirty_tpu_torch.data.boxes import box_scenes
+from driving_dirty_tpu_torch.data.boxes import box_scenes, detection_rois, detection_scenes
 from driving_dirty_tpu_torch.export import load_task_ckpt, save_task_ckpt
 from driving_dirty_tpu_torch.kernels import build
 from driving_dirty_tpu_torch.kernels.raster import raster, raster_plain
+from driving_dirty_tpu_torch.kernels.roialign import roialign, roialign_plain, sample_coords
 from driving_dirty_tpu_torch.kernels.trunk import out_hw, trunk, trunk_plain
+from driving_dirty_tpu_torch.models.faster_rcnn import BBFasterRCNN, FasterRCNNRoadMap
 from driving_dirty_tpu_torch.models.multitask import MultiTask
 from driving_dirty_tpu_torch.models.roadmap import RoadMapBCEv2
 from driving_dirty_tpu_torch.models.spatial_bb import BBSpatialModel, BBSpatialRoadMap
+from driving_dirty_tpu_torch.ops import detection as det
 from driving_dirty_tpu_torch.ops.maps import raster_geometry
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
 
 SEED = 0
 BATCH = 8
 VIEW_H, VIEW_W = 256, 306
-PANO = (VIEW_H, 6 * VIEW_W)          # 256 x 1836, the main path's trunk input
+PANO = (VIEW_H, 6 * VIEW_W)          # 256 x 1836, the roadmap path's trunk input
+LAYOUT = (800, 800)                  # the detection path's trunk input (the layout image)
 REQUESTS = 5                         # timed requests per precision, after one warm-up
 HPARAMS = dict(ae_hidden_dim=128, ae_latent_dim=64, pretrained_path=None, batch_size=BATCH)
 
@@ -128,6 +153,32 @@ BOX_TOL = {32: 1e-4, 16: 2.0 ** -5}
 # within float error of its threshold; with random weights many do. f32 1e-3;
 # bf16 2e-2 (bf16 roundings a few ulps apart flip more of them).
 VAL_TOL = {32: 1e-3, 16: 2e-2}
+
+# RoIAlign kernel vs plain, max |error| <= ROI_TOL * max|plain|, in either
+# feature dtype: both read the same taps with the same f32 weights (the
+# sample coordinates are computed without fma contraction on both sides);
+# each output is a convex combination of 16 taps whose products and sums
+# round in another order, at most about 16 f32 ulps of the largest value.
+ROI_TOL = 4e-6
+ROIS = 1000                          # rois an image, the detection head's post-NMS count
+ROI_FEATS = (BATCH, 400, 400, 32)    # c3 of the 800-px layout image
+ROI_ODD = ((2, 37, 53, 24, 1), (1, 21, 30, 32, 1001), (3, 16, 19, 3, 33))
+ROI_KW = dict(output_size=7, spatial_scale=0.5, sampling_ratio=2)
+# detection head, default config: 16 taps x (multiply + add) per output value
+ROI_OPS_PER_OUTPUT = 32
+DET_HPARAMS = dict(pretrained_path=None, batch_size=BATCH)  # the JAX package's defaults
+DET_SIZE = 800                       # the layout image and road map side
+# Detection path vs the same model with the plain kernels, max |error| <=
+# this * max|plain| on the RPN objectness and deltas and on the class
+# posteriors: f32 1e-4, as the logits above; bf16 2^-5 (c3 maps a bf16 ulp
+# or two apart, and the pooled f32 values rounded to bf16 before the
+# 1568-wide box MLP).
+DET_TOL = {32: 1e-4, 16: 2.0 ** -5}
+# f32: share of the plain run's valid detections that the kernel run also
+# returns (same label, IoU >= 0.99). Only scores within f32 rounding of each
+# other can swap ranks, and a swap changes a detection only at a cut-off or
+# between overlapping boxes of one class.
+DET_AGREEMENT = 0.99
 
 
 def device_line() -> str:
@@ -217,9 +268,11 @@ def kernel_phase(gen) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
     records = []
-    for dtype in (torch.float32, torch.bfloat16):
-        check_trunk(gen, dtype, (2, 17, 35, 3))  # odd H and W, partial tiles
-        c = check_trunk(gen, dtype, (BATCH, *PANO, 3))
+    for (path, hw), dtype in [(p, d) for p in (("roadmap", PANO), ("detection", LAYOUT))
+                              for d in (torch.float32, torch.bfloat16)]:
+        if path == "roadmap":
+            check_trunk(gen, dtype, (2, 17, 35, 3))  # odd H and W, partial tiles
+        c = check_trunk(gen, dtype, (BATCH, *hw, 3))
         x, p = c["x"], c["params"]
         ms = cuda_ms(lambda: trunk(x, *p))
         plain_ms = cuda_ms(lambda: trunk_plain(x, *p))
@@ -228,7 +281,7 @@ def kernel_phase(gen) -> list[dict]:
         records.append({
             "name": "trunk", "route": "cuda", "source": "driving_dirty_tpu_torch/csrc/trunk.cu",
             "replaces": "driving_dirty_tpu/pallas/trunk.py:245 (fused_trunk)",
-            "shape": list(x.shape), "dtype": str(dtype)[6:],
+            "path": path, "shape": list(x.shape), "dtype": str(dtype)[6:],
             **{k: c[k] for k in ("max_abs_err", "tol", "mean_abs_err", "max_abs_plain",
                                  "mean_abs_plain")},
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -322,14 +375,15 @@ def raster_phase() -> dict:
 
 
 def serve(model, requests) -> tuple[list, float]:
-    """Answer each request (host uint8 scenes) with host outputs; -> (outputs,
-    seconds)."""
+    """Answer each request (host uint8 scenes, or a tuple of them and their
+    road maps) with host outputs; -> (outputs, seconds)."""
     outs = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for images in requests:
-        x = torch.from_numpy(images).pin_memory().to("cuda", non_blocking=True)
-        y = model.predict(x)
+    for req in requests:
+        args = [torch.from_numpy(a).pin_memory().to("cuda", non_blocking=True)
+                for a in (req if isinstance(req, tuple) else (req,))]
+        y = model.predict(*args)
         outs.append({k: v.cpu() for k, v in y.items()} if isinstance(y, dict) else y.cpu())
     torch.cuda.synchronize()
     return outs, time.perf_counter() - t0
@@ -366,14 +420,11 @@ def serving_phase(ckpt: Path, smi: str) -> dict:
     for precision in (32, 16):
         tf32_line(f"roadmap serving precision {precision}")
         model = load_roadmap_model(str(ckpt), precision=precision, device="cuda")
-        trunk.launches = raster.launches = 0
+        reset_launches()
         masks, _ = serve(model, requests[:1])  # warm-up: allocator, cuDNN, first launch
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             timed, seconds = serve(model, requests[1:])
-        launches = trunk.launches
-        if launches != len(requests) or raster.launches:
-            raise RuntimeError(f"precision {precision}: {launches} trunk and {raster.launches} "
-                               f"raster launches for {len(requests)} requests")
+        launches = expect_launches(f"roadmap precision {precision}", len(requests), 0)["trunk"]
         for m in masks + timed:
             if tuple(m.shape) != (BATCH, 800, 800) or not ((m == 0) | (m == 1)).all():
                 raise RuntimeError(f"precision {precision}: bad mask {tuple(m.shape)}")
@@ -408,16 +459,22 @@ def serving_phase(ckpt: Path, smi: str) -> dict:
 
 @contextmanager
 def plain_kernels():
-    """The plain trunk and the plain rasterizer in place of the kernels."""
+    """The plain trunk, rasterizer and RoIAlign in place of the kernels."""
     with mock.patch("driving_dirty_tpu_torch.nn.autoencoder.trunk", trunk_plain), \
-            mock.patch("driving_dirty_tpu_torch.models.spatial_bb.raster", raster_plain):
+            mock.patch("driving_dirty_tpu_torch.models.spatial_bb.raster", raster_plain), \
+            mock.patch("driving_dirty_tpu_torch.ops.detection.roialign", roialign_plain):
         yield
 
 
-def expect_launches(what: str, trunks: int, rasters: int) -> dict:
-    got = {"trunk": trunk.launches, "raster": raster.launches}
-    if got != {"trunk": trunks, "raster": rasters}:
-        raise RuntimeError(f"{what}: launches {got}, expected trunk {trunks}, raster {rasters}")
+def reset_launches() -> None:
+    trunk.launches = raster.launches = roialign.launches = 0
+
+
+def expect_launches(what: str, trunks: int, rasters: int, roialigns: int = 0) -> dict:
+    got = {"trunk": trunk.launches, "raster": raster.launches, "roialign": roialign.launches}
+    want = {"trunk": trunks, "raster": rasters, "roialign": roialigns}
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got}, expected {want}")
     return got
 
 
@@ -438,7 +495,7 @@ def check_val_metrics(model, batches, precision: int, label: str) -> dict:
     """val_metrics through the kernels (launch counts read around exactly
     that run), then held against the plain kernels; the targets must be
     equal."""
-    trunk.launches = raster.launches = 0
+    reset_launches()
     metrics = [model.val_metrics(b) for b in batches]
     torch.cuda.synchronize()
     launches = expect_launches(f"{label} val_metrics", len(batches), len(batches))
@@ -473,7 +530,7 @@ def box_phase(tmp: Path, smi: str) -> dict:
         model = load_task_ckpt(str(ckpt), precision=precision)
         if not isinstance(model, MultiTask):
             raise RuntimeError(f"load_task_ckpt gave a {type(model).__name__}")
-        trunk.launches = raster.launches = 0
+        reset_launches()
         outs, _ = serve(model, requests[:1])  # warm-up: allocator, cuDNN autotuning
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             timed, seconds = serve(model, requests[1:])
@@ -511,7 +568,7 @@ def box_phase(tmp: Path, smi: str) -> dict:
         b = batches[0]
         road = b["road"] if cls.uses_roadmap else None
         model.predict(b["images"], road)  # warm-up: cuDNN autotuning
-        trunk.launches = raster.launches = 0
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         probs = model.predict(b["images"], road)
@@ -530,6 +587,238 @@ def box_phase(tmp: Path, smi: str) -> dict:
     return out
 
 
+def roialign_bound_ms(feats, rois) -> tuple[float, str, int]:
+    """-> (bound ms, what binds, feature pixels touched). Bytes: the output
+    written once, the rois read once, and each feature pixel that some tap
+    of these rois reads, read once; operations ROI_OPS_PER_OUTPUT f32
+    operations per output value over 67 TFLOP/s."""
+    b, h, w, c = feats.shape
+    r = rois.shape[1]
+    out = ROI_KW["output_size"]
+    ys, xs = sample_coords(rois, h, w, out, ROI_KW["spatial_scale"], ROI_KW["sampling_ratio"], False)
+    rows = torch.stack([ys.floor().long(), (ys.floor().long() + 1).clamp(max=h - 1)], -1).reshape(b, r, -1)
+    cols = torch.stack([xs.floor().long(), (xs.floor().long() + 1).clamp(max=w - 1)], -1).reshape(b, r, -1)
+    touched = torch.zeros((b, h * w), dtype=torch.bool, device=feats.device)
+    touched.scatter_(1, (rows[..., :, None] * w + cols[..., None, :]).reshape(b, -1), True)
+    pixels = int(touched.sum())
+    outputs = b * r * out * out * c
+    nbytes = pixels * c * feats.element_size() + outputs * 4 + rois.numel() * 4
+    t_ops, t_bytes = outputs * ROI_OPS_PER_OUTPUT / PEAK_OPS[torch.float32], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", pixels
+
+
+def roialign_library_args(feats, rois):
+    """NCHW features and the grid_sample grid of the 14 x 14 sample points of
+    every roi ([B, R * 14, 14, 2], normalized for align_corners=True)."""
+    b, h, w, _ = feats.shape
+    ys, xs = sample_coords(rois, h, w, ROI_KW["output_size"], ROI_KW["spatial_scale"],
+                           ROI_KW["sampling_ratio"], False)
+    p = ys.shape[-1]
+    gx = (xs / (w - 1) * 2 - 1)[:, :, None, :].expand(-1, -1, p, -1)
+    gy = (ys / (h - 1) * 2 - 1)[:, :, :, None].expand(-1, -1, -1, p)
+    grid = torch.stack([gx, gy], -1).reshape(b, -1, p, 2).to(feats.dtype)
+    return feats.permute(0, 3, 1, 2).contiguous(), grid
+
+
+def roialign_library(feats_nchw, grid):
+    """The yardstick, two PyTorch calls: bilinear samples at the roi sample
+    points (border padding is the kernel's clipping), then the 2x2 mean of
+    each bin. [B, C, R * 7, 7]; timed only, the port never calls it."""
+    y = torch.nn.functional.grid_sample(feats_nchw, grid, mode="bilinear", padding_mode="border",
+                                        align_corners=True)
+    return torch.nn.functional.avg_pool2d(y, 2)
+
+
+def roialign_phase(gen) -> list[dict]:
+    records = []
+    for b, h, w, c, r in ROI_ODD:
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = torch.rand((b, h, w, c), generator=gen, device="cuda").to(dtype)
+            rois = torch.from_numpy(detection_rois(SEED + r, b, r, 2 * max(h, w))).cuda()
+            hold(f"roialign {str(dtype)[6:]} {[b, h, w, c]} R={r}", roialign(feats, rois, **ROI_KW),
+                 roialign_plain(feats, rois, **ROI_KW), ROI_TOL)
+    rois = torch.from_numpy(detection_rois(SEED, BATCH, ROIS)).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = torch.rand(ROI_FEATS, generator=gen, device="cuda").to(dtype)
+        name = f"roialign {str(dtype)[6:]} {list(ROI_FEATS)} R={ROIS}"
+        rec = hold(name, roialign(feats, rois, **ROI_KW), roialign_plain(feats, rois, **ROI_KW), ROI_TOL)
+        ms = kernel_device_ms(lambda: roialign(feats, rois, **ROI_KW), "roialign_kernel")
+        call_ms = cuda_ms(lambda: roialign(feats, rois, **ROI_KW))
+        plain_ms = cuda_ms(lambda: roialign_plain(feats, rois, **ROI_KW))
+        nchw, grid = roialign_library_args(feats, rois)
+        lib = roialign_library(nchw, grid)
+        lib = lib.reshape(BATCH, ROI_FEATS[3], ROIS, 7, 7).permute(0, 2, 3, 4, 1).float()
+        library_err = (lib - roialign_plain(feats, rois, **ROI_KW)).abs().max().item()
+        library_ms = cuda_ms(lambda: roialign_library(nchw, grid))
+        bound_ms, bound_by, pixels = roialign_bound_ms(feats, rois)
+        print(f"{name}: kernel {ms:.4f} ms on the device, {call_ms:.4f} ms per call back to back, "
+              f"plain {plain_ms:.3f} ms, grid_sample+avg_pool2d {library_ms:.4f} ms (two calls; "
+              f"max |diff| {library_err:.3e} from plain, its grid in {str(dtype)[6:]}), bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {pixels} feature pixels touched of "
+              f"{BATCH * ROI_FEATS[1] * ROI_FEATS[2]}), roofline share {bound_ms / ms:.3f}", flush=True)
+        records.append({
+            "name": "roialign", "route": "cuda", "source": "driving_dirty_tpu_torch/csrc/roialign.cu",
+            "replaces": "driving_dirty_tpu/pallas/roialign.py:84 (roi_align_fused)",
+            "path": "detection", "shape": list(ROI_FEATS), "rois": ROIS, "dtype": str(dtype)[6:],
+            **{k: rec[k] for k in ("max_abs_err", "tol", "mean_abs_err", "max_abs_plain")},
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_calls": "grid_sample + avg_pool2d", "library_max_abs_diff": library_err,
+            "bound_ms": bound_ms, "bound_by": bound_by, "touched_pixels": pixels,
+            "roofline_share": bound_ms / ms})
+        del feats, nchw, grid, lib
+        torch.cuda.empty_cache()
+    return records
+
+
+def found_share(got, ref) -> float:
+    """Share of ref's valid detections that got also returns (same label,
+    IoU >= 0.99, any slot), over a batch of host detection dicts."""
+    found = total = 0
+    for j in range(ref["valid"].shape[0]):
+        gv = got["valid"][j]
+        gb, gl = got["boxes"][j][gv].float(), got["labels"][j][gv]
+        for box, label in zip(ref["boxes"][j][ref["valid"][j]].float(), ref["labels"][j][ref["valid"][j]]):
+            lt, rb = torch.maximum(gb[:, :2], box[:2]), torch.minimum(gb[:, 2:], box[2:])
+            inter = (rb - lt).clamp(min=0).prod(-1)
+            union = (box[2:] - box[:2]).prod() + (gb[:, 2:] - gb[:, :2]).prod(-1) - inter
+            found += bool(((inter / union.clamp(min=1e-9) >= 0.99) & (gl == label)).any())
+            total += 1
+    return found / max(total, 1)
+
+
+def check_detections(d, label: str) -> None:
+    boxes, scores, labels, valid = d["boxes"], d["scores"].float(), d["labels"], d["valid"]
+    ok = (tuple(boxes.shape) == (BATCH, 100, 4) and valid.dtype == torch.bool
+          and bool(torch.isfinite(boxes).all()) and boxes.min() >= 0 and boxes.max() <= DET_SIZE
+          and bool(((scores >= 0) & (scores <= 1)).all()) and not bool(scores[~valid].any())
+          and bool(((labels[valid] >= 0) & (labels[valid] <= 8)).all()))
+    if not ok:
+        raise RuntimeError(f"{label}: bad detections {tuple(boxes.shape)}, "
+                           f"{int(valid.sum())} valid")
+
+
+def detection_requests(n):
+    rng = np.random.RandomState(SEED + 3)
+    return [(request_images(rng, 1)[0], detection_scenes(SEED + 10 + i, BATCH, MAX_BB, DET_SIZE)["road"])
+            for i in range(n)]
+
+
+def detection_batches():
+    """VAL_BATCHES labelled batches of BATCH scenes on the card: uint8 views
+    and seeded detection scenes (boxes, categories, road)."""
+    rng = np.random.RandomState(SEED + 4)
+    out = []
+    for i in range(VAL_BATCHES):
+        batch = {"images": request_images(rng, 1)[0],
+                 **detection_scenes(SEED + 20 + i, BATCH, MAX_BB, DET_SIZE)}
+        out.append({k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    return out
+
+
+def check_against_plain(model, x, road, precision: int, label: str) -> dict:
+    """RPN outputs, RoIAlign on the kernel path's rois, the class posteriors
+    on those rois, and the detections, against the plain kernels."""
+    head = model.head
+    with torch.no_grad():
+        feats = model.backbone_features(x, road)
+        obj, dl = head.rpn_forward(feats)
+        rois, _, _ = head.proposals(obj, dl)
+        pooled = det.batched_roi_align(feats, rois, **ROI_KW)
+        cls = torch.softmax(head.box_predictions(head.roi_features(feats, rois))[0], -1)
+        with plain_kernels():
+            feats_p = model.backbone_features(x, road)
+            obj_p, dl_p = head.rpn_forward(feats_p)
+            cls_p = torch.softmax(head.box_predictions(head.roi_features(feats_p, rois))[0], -1)
+            dets_p = {k: v.cpu() for k, v in model.predict(x, road).items()}
+        dets = {k: v.cpu() for k, v in model.predict(x, road).items()}
+    rec = {"objectness_err": hold(f"{label} RPN objectness", obj, obj_p, DET_TOL[precision])["max_abs_err"],
+           "deltas_err": hold(f"{label} RPN deltas", dl, dl_p, DET_TOL[precision])["max_abs_err"],
+           "roialign_err": hold(f"{label} RoIAlign on the path's rois", pooled,
+                                roialign_plain(feats, rois, **ROI_KW), ROI_TOL)["max_abs_err"],
+           "posterior_err": hold(f"{label} class posteriors", cls, cls_p, DET_TOL[precision])["max_abs_err"]}
+    share = found_share(dets, dets_p)
+    print(f"{label}: {share:.4f} of the plain run's {int(dets_p['valid'].sum())} valid detections "
+          f"found in the kernel run's {int(dets['valid'].sum())}", flush=True)
+    if precision == 32 and share < DET_AGREEMENT:
+        raise RuntimeError(f"{label}: detections agree {share} < {DET_AGREEMENT} with the plain kernels")
+    return {**rec, "detections_found": share}
+
+
+def check_host_val_metrics(model, batches, label: str) -> list[dict]:
+    out = []
+    bmask = np.ones(BATCH, bool)
+    for b in batches:
+        reset_launches()
+        m = model.host_val_metrics(b, bmask)
+        torch.cuda.synchronize()
+        expect_launches(f"{label} host_val_metrics", 2, 0, 2)
+        if not {"val_ats", "val_det_kept", "val_rpn_recall", "val_prop_cov"} <= set(m) or \
+                not all(np.isfinite(v) and w > 0 for v, w in m.values()):
+            raise RuntimeError(f"{label}: host_val_metrics gave {m}")
+        print(f"{label} host_val_metrics: " + ", ".join(f"{k} {v:.6f} (weight {w:g})"
+                                                        for k, (v, w) in sorted(m.items())), flush=True)
+        out.append(m)
+    return out
+
+
+def detection_phase(tmp: Path, smi: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    ckpt = tmp / "faster_rcnn_rm.ckpt"
+    save_task_ckpt(ckpt, FasterRCNNRoadMap(DET_HPARAMS, device="cuda", generator=gen))
+    torch.cuda.empty_cache()
+    requests = detection_requests(REQUESTS + 1)
+    batches = detection_batches()
+    out = {}
+    for precision in (32, 16):
+        label = f"faster_rcnn_rm precision {precision}"
+        tf32_line(label)
+        model = load_detection_task(str(ckpt), precision=precision)
+        if not isinstance(model, FasterRCNNRoadMap):
+            raise RuntimeError(f"load_detection_task gave a {type(model).__name__}")
+        reset_launches()
+        checks = det.nms_fixed.checks
+        outs, _ = serve(model, requests[:1])  # warm-up: allocator, cuDNN autotuning
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            timed, seconds = serve(model, requests[1:])
+        launches = expect_launches(f"{label} predict", len(requests), 0, len(requests))
+        nms_checks = (det.nms_fixed.checks - checks) / len(requests)
+        for o in outs + timed:
+            check_detections(o, label)
+        rec = window_report(prof, seconds, f"{label} serve", smi)
+        print(f"{label}: {nms_checks:.1f} NMS convergence checks (host readbacks) per request; "
+              f"{int(timed[0]['valid'].sum())} valid detections in the first timed request", flush=True)
+        del prof
+        x, road = (torch.from_numpy(a).cuda() for a in requests[0])
+        plain = check_against_plain(model, x, road, precision, label)
+        val = check_host_val_metrics(model, batches, label)
+        out[f"faster_rcnn_rm_{precision}"] = {"predict_launches": launches, **rec,
+                                              "nms_checks_per_request": nms_checks, **plain,
+                                              "host_val_metrics": val}
+        del model
+        torch.cuda.empty_cache()
+
+    label = "faster_rcnn precision 32"
+    tf32_line(label)
+    model = BBFasterRCNN(DET_HPARAMS, device="cuda", generator=gen).eval().requires_grad_(False)
+    b = batches[0]
+    model.predict(b["images"])  # warm-up: cuDNN autotuning
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dets = {k: v.cpu() for k, v in model.predict(b["images"]).items()}
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = expect_launches(f"{label} predict", 1, 0, 1)
+    check_detections(dets, label)
+    print(f"{label}: one predict of {BATCH} scenes {wall_ms:.3f} ms wall ({smi})", flush=True)
+    plain = check_against_plain(model, b["images"], None, 32, label)
+    val = check_host_val_metrics(model, batches[:1], label)
+    out["faster_rcnn"] = {"predict_launches": launches, "predict_wall_ms": wall_ms, **plain,
+                          "host_val_metrics": val}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -540,8 +829,8 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    build.load_libraries(("trunk", "raster"))
-    print(f"built trunk.cu and raster.cu in {time.perf_counter() - t0:.1f} s", flush=True)
+    build.load_libraries(("trunk", "raster", "roialign"))
+    print(f"built trunk.cu, raster.cu and roialign.cu in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.BUILD_LOG.items():
         print(f"ptxas [{name}]:\n{log.strip()}", flush=True)
 
@@ -549,6 +838,7 @@ def main() -> int:
     records = kernel_phase(gen)
     tf32_line("kernel phases")
     raster_rec = raster_phase()
+    roialign_recs = roialign_phase(gen)
 
     build.BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD) as tmp:
@@ -557,12 +847,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         served = serving_phase(ckpt, smi)
         boxes = box_phase(Path(tmp), smi)
+        detection = detection_phase(Path(tmp), smi)
 
     for r in records:
-        r["launches"] = served[32 if r["dtype"] == "float32" else 16]["launches"]
+        precision = 32 if r["dtype"] == "float32" else 16
+        if r["path"] == "roadmap":
+            r["launches"] = served[precision]["launches"]
+        else:
+            r["launches"] = detection[f"faster_rcnn_rm_{precision}"]["predict_launches"]["trunk"]
     raster_rec["launches"] = boxes["multitask_32"]["launches"]["raster"]
     records.append(raster_rec)
-    print(json.dumps({"serving": served, "box_family": boxes}))
+    for r in roialign_recs:
+        precision = 32 if r["dtype"] == "float32" else 16
+        r["launches"] = detection[f"faster_rcnn_rm_{precision}"]["predict_launches"]["roialign"]
+    records += roialign_recs
+    print(json.dumps({"serving": served, "box_family": boxes, "detection": detection}))
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

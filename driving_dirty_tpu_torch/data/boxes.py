@@ -51,3 +51,30 @@ def box_scenes(seed: int, batch: int = 8, max_bb: int = 100):
         valid[b, :n] = True
         boxes[b, n] = _vehicle(rng)                                           # real, invalid
     return boxes, valid
+
+
+def detection_scenes(seed: int, batch: int = 8, max_bb: int = 100, size: int = 800):
+    """-> {"boxes", "box_valid"} of box_scenes(seed, batch, max_bb), plus
+    "categories" and "road" from their own seeded stream."""
+    boxes, valid = box_scenes(seed, batch, max_bb)
+    rng = np.random.RandomState(seed + 7919)
+    cats = np.where(valid, rng.randint(0, 9, valid.shape), -1).astype(np.int32)
+    road = np.zeros((batch, size, size), np.float32)
+    for b in range(batch):
+        for _ in range(rng.randint(1, 4)):
+            lo = rng.randint(0, size)
+            hi = min(size, lo + rng.randint(size // 16, size // 4))
+            if rng.rand() < 0.5:
+                road[b, lo:hi, :] = 1.0
+            else:
+                road[b, :, lo:hi] = 1.0
+    return {"boxes": boxes, "box_valid": valid, "categories": cats, "road": road}
+
+
+def detection_rois(seed: int, batch: int = 8, r: int = 1000, size: int = 800):
+    rng = np.random.RandomState(seed)
+    wh = np.exp(rng.uniform(np.log(16.0), np.log(512.0), (batch, r, 2)))
+    centre = rng.uniform(0.0, size, (batch, r, 2))
+    rois = np.concatenate([centre - wh / 2, centre + wh / 2], -1)
+    rois[:, ::50, 2:] = rois[:, ::50, :2]
+    return rois.astype(np.float32)

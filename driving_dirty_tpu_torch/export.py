@@ -1,32 +1,38 @@
-"""Checkpoint entry of the box-occupancy family (driving_dirty_tpu/export.py:
+"""Checkpoint entry of the box families (driving_dirty_tpu/export.py:
 196-282, the restore half).
 
-`load_task_ckpt` rebuilds a spatial_bb, spatial_rm or multitask model from a
-framework `.ckpt` (either package writes them) by its `meta["task"]`, ready
-for `predict` and `val_metrics`; `save_task_ckpt` writes one. Exporting a
-`.ddx` serving artifact (`export_spatial`, `export_multitask`, `Served`)
-waits for the export/serve slice (ROADMAP A.12).
+`load_task_ckpt` rebuilds a spatial_bb, spatial_rm, multitask, faster_rcnn
+or faster_rcnn_rm model from a framework `.ckpt` (either package writes
+them) by its `meta["task"]`, ready for `predict` and `val_metrics` (the
+detection tasks: `host_val_metrics`); `save_task_ckpt` writes one.
+Exporting a `.ddx` serving artifact (`export_spatial`, `export_multitask`,
+`export_detection`, `Served`) waits for the export/serve slice (ROADMAP
+A.12).
 """
 from __future__ import annotations
 
 from driving_dirty_tpu_torch.checkpoints import io as ckpt_io
 from driving_dirty_tpu_torch.checkpoints.convert import load_jax_weights, model_to_jax
 from driving_dirty_tpu_torch.core.device import resolve_device
+from driving_dirty_tpu_torch.models.faster_rcnn import BBFasterRCNN, FasterRCNNRoadMap
 from driving_dirty_tpu_torch.models.multitask import MultiTask
 from driving_dirty_tpu_torch.models.spatial_bb import BBSpatialModel, BBSpatialRoadMap
 
 BOX_TASKS = {cls.name: cls for cls in (BBSpatialModel, BBSpatialRoadMap, MultiTask)}
+DETECTION_TASKS = {cls.name: cls for cls in (BBFasterRCNN, FasterRCNNRoadMap)}
+TASKS = {**BOX_TASKS, **DETECTION_TASKS}
 
 
-def load_task_ckpt(ckpt_path, precision=None, classes=None, device=None):
-    """Framework .ckpt -> the model its `meta["task"]` names, one of
-    `classes` (name -> class; default the box family), on `device` (default
-    cuda), in eval mode with no gradients. `precision` overrides the
-    checkpoint's (32 or 16; 8 raises NotImplementedError)."""
-    classes = BOX_TASKS if classes is None else classes
+def load_task_ckpt(ckpt_path, precision=None, classes=None, device=None, default_task=None):
+    """Framework .ckpt -> the model its `meta["task"]` names (`default_task`
+    when it names none), one of `classes` (name -> class; default every box
+    and detection task), on `device` (default cuda), in eval mode with no
+    gradients. `precision` overrides the checkpoint's (32 or 16; 8 raises
+    NotImplementedError)."""
+    classes = TASKS if classes is None else classes
     device = resolve_device(device)
     blob = ckpt_io.load(ckpt_path)
-    task_name = blob["meta"].get("task")
+    task_name = blob["meta"].get("task", default_task)
     if task_name not in classes:
         raise ValueError(f"checkpoint task {task_name!r} is not one of {sorted(classes)}")
     if not blob["params"]:

@@ -1,6 +1,5 @@
-"""BEV map conversions and the plain box rasterizer
-(driving_dirty_tpu/ops/maps.py:25-96). `layout_images_as_map` comes with
-the detection family.
+"""BEV map conversions, the plain box rasterizer and the detection
+family's square view layout (driving_dirty_tpu/ops/maps.py).
 
 `boxes_to_binary_map` is the plain PyTorch version of kernel B2
 (kernels/raster.py, csrc/raster.cu): the CPU path of the wrapper and the
@@ -12,6 +11,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 MAP_SIZE = 800
 RING = (0, 1, 3, 2)  # corner order fl, fr, bl, br -> the convex ring fl, fr, br, bl
@@ -89,3 +89,40 @@ def boxes_to_binary_map(boxes_m, valid=None, size: int = MAP_SIZE):
             inside &= s * cross >= 0.0
         out |= inside
     return out.flip(-2).float().reshape(*lead, size, size)
+
+
+def layout_images_as_map(x, size: int = MAP_SIZE):
+    """Six camera views [b, 6, H, W, C] -> one square [b, size, size, C]
+    layout image, the detection backbone's input:
+
+        BL FL
+        B  F
+        BR FR
+
+    B and F rotated 90 degrees outward, BR and FR flipped in both axes, each
+    view resized bilinearly into its cell (rows size // 3, size // 3 and the
+    rest; columns size // 2).
+
+    jax.image.resize(method="linear") antialiases when it shrinks (the
+    rotated B and F views shrink from W to about size / 3 rows), so the
+    counterpart is F.interpolate with antialias=True; without it the rotated
+    cells differ by up to 0.19 on [0, 1] images. The resize runs in f32 and
+    rounds to x's dtype."""
+    b, _, _, _, c = x.shape
+    fl, f, fr, bl, bk, br = (x[:, i] for i in range(6))
+    bk = torch.rot90(bk, 1, (1, 2))
+    f = torch.rot90(f, 1, (2, 1))
+    br = torch.flip(br, (1, 2))
+    fr = torch.flip(fr, (1, 2))
+    cell_h, cell_w = size // 3, size // 2
+
+    def fit(img, th):
+        y = F.interpolate(img.permute(0, 3, 1, 2).float(), size=(th, cell_w), mode="bilinear",
+                          align_corners=False, antialias=True)
+        return y.to(x.dtype).permute(0, 2, 3, 1)
+
+    heights = (cell_h, cell_h, size - 2 * cell_h)
+    grid = ((bl, fl), (bk, f), (br, fr))
+    rows = [torch.cat([fit(left, th), fit(right, th)], dim=2)
+            for (left, right), th in zip(grid, heights)]
+    return torch.cat(rows, dim=1)

@@ -11,7 +11,12 @@ without one. Trunk tolerances as in chip_smoke.py, scaled by max|plain|:
 f32 2e-4 (f32 sums in another order; cuDNN with TF32 off), bf16 2^-6 (c1,
 c2 and c3 rounded to bf16 at the same points from sums in another order:
 2 to 4 bf16 ulps at the largest output). The box rasterizer must equal its
-plain version exactly: 0 differing pixels.
+plain version exactly: 0 differing pixels. RoIAlign within 4e-6 of
+max|plain| in either feature dtype: both read the same taps with the same
+f32 weights (the sample coordinates are computed without fma contraction
+on both sides), and each output is a convex combination of 16 taps whose
+products and sums round in another order, at most about 16 f32 ulps of
+the largest value.
 """
 import ast
 from pathlib import Path
@@ -20,12 +25,14 @@ import numpy as np
 import pytest
 import torch
 
-from driving_dirty_tpu_torch.data.boxes import box_scenes
+from driving_dirty_tpu_torch.data.boxes import box_scenes, detection_rois
 from driving_dirty_tpu_torch.kernels import raster as R
+from driving_dirty_tpu_torch.kernels import roialign as RA
 from driving_dirty_tpu_torch.kernels import trunk as K
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": 2e-4, "bfloat16": 2.0 ** -6}
+ROI_TOL = 4e-6
 
 
 @pytest.mark.gpu
@@ -100,6 +107,78 @@ def test_raster_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         R.raster(torch.zeros(65536, 1, 2, 4, device="cuda"),
                  torch.zeros(65536, 1, dtype=torch.bool, device="cuda"), 8)
+
+
+def _roialign_inputs(b, h, w, c, r, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    feats = torch.rand((b, h, w, c), generator=gen, device="cuda").to(getattr(torch, dtype))
+    rois = torch.from_numpy(detection_rois(seed, b, r, size=2 * max(h, w))).cuda()
+    return feats, rois
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,kw", [
+    ((8, 400, 400, 32, 1000), dict(spatial_scale=0.5)),              # the detection path's shape
+    ((2, 37, 53, 24, 1), dict(spatial_scale=0.5)),                   # odd H and W, C not 32, R = 1
+    ((1, 21, 30, 32, 1001), dict(spatial_scale=0.5, aligned=True)),
+    ((3, 16, 19, 3, 33), dict(output_size=5, sampling_ratio=3, spatial_scale=0.25)),
+])
+def test_roialign_kernel_matches_plain_on_gpu(shape, kw, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, h, w, c, r = shape
+    feats, rois = _roialign_inputs(b, h, w, c, r, dtype)
+    launches = RA.roialign.launches
+    got = RA.roialign(feats, rois, **kw)
+    ref = RA.roialign_plain(feats, rois, **kw)
+    torch.cuda.synchronize()
+    assert RA.roialign.launches == launches + 1
+    out = kw.get("output_size", 7)
+    assert got.dtype == torch.float32 and got.shape == ref.shape == (b, r, out, out, c)
+    assert (got - ref).abs().max().item() <= ROI_TOL * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_roialign_on_cuda_never_reaches_the_plain_version(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    feats, rois = _roialign_inputs(2, 40, 40, 32, 16, "float32")
+    ref = RA.roialign_plain(feats, rois)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(RA, "roialign_plain", refuse)
+    launches = RA.roialign.launches
+    from driving_dirty_tpu_torch.ops.detection import batched_roi_align
+    got = batched_roi_align(feats, rois)
+    torch.cuda.synchronize()
+    assert RA.roialign.launches == launches + 1
+    assert (got - ref).abs().max().item() <= ROI_TOL * ref.abs().max().item()
+    empty = RA.roialign(feats, rois[:, :0])
+    assert empty.shape == (2, 0, 7, 7, 32) and RA.roialign.launches == launches + 1
+
+
+@pytest.mark.gpu
+def test_roialign_kernel_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    feats, rois = _roialign_inputs(2, 8, 8, 4, 3, "float32")
+    with pytest.raises(TypeError):
+        RA.roialign(feats.half(), rois)
+    with pytest.raises(TypeError):
+        RA.roialign(feats, rois.double())
+    with pytest.raises(ValueError):
+        RA.roialign(feats, rois[:1])
+    with pytest.raises(ValueError):
+        RA.roialign(feats.transpose(1, 2), rois)
+    with pytest.raises(ValueError):
+        RA.roialign(feats, rois.cpu())
+    with pytest.raises(ValueError):
+        RA.roialign(feats, rois, output_size=128, sampling_ratio=4)
+    with pytest.raises(NotImplementedError):
+        RA.roialign(feats.requires_grad_(), rois)
 
 
 def _imports(path):
