@@ -9,7 +9,15 @@
 2. Trunk kernel phase (B1): calls the trunk kernel on the card at the shape
    the main path gives it, holds it against its plain PyTorch version with a
    stated tolerance, and times the kernel, the plain version and one library
-   call that computes the same function.
+   call that computes the same function. bf16 runs on the tensor cores
+   (mma.sync), f32 on the CUDA cores.
+2b. Trunk stage-bisection phase (B1'): at f32 and bf16 [8, 256, 1836, 3]
+   and at the JAX probe's bf16 [64, 256, 1836, 3], holds every variant of
+   the trunk kernel (v0 .. full) against its plain version, checks that
+   "full" equals `trunk` bit for bit, then drives the probe's entry point
+   (scripts/probe_trunk_variants.py:run_probe) with the launch count set to
+   0 just before and read just after, and times each variant's plain
+   version and its cuDNN prefix.
 3. Raster kernel phase (B2): seeded box scenes (data/boxes.py: 8 scenes of
    max_bb 100 with 5-60 valid cars and trucks and the edge cases) at sizes
    800, 148 and 157: the kernel must equal its plain version with 0
@@ -20,7 +28,9 @@
    latent 64, 6x256x306 views) from a seed, writes it with
    export.save_task_ckpt, loads it back through cli.run_test.load_roadmap_model,
    and answers requests of 8 uint8 scenes through `predict` at precision 32
-   and 16: one warm-up and 5 timed requests under torch.profiler
+   and 16: two requests on the freshly loaded model must build the trunk's
+   kernel weights once (kernels/trunk.py:prepare_weights.calls), then one
+   warm-up and 5 timed requests under torch.profiler
    (throughput, device-busy time, idle share and the device operations that
    take the most time come from that one window). Each request must launch
    the trunk kernel exactly once. The model's c3 map (stitched, /255, in the
@@ -69,7 +79,6 @@ of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import tempfile
 import time
@@ -90,7 +99,8 @@ from driving_dirty_tpu_torch.export import load_task_ckpt, save_task_ckpt
 from driving_dirty_tpu_torch.kernels import build
 from driving_dirty_tpu_torch.kernels.raster import raster, raster_plain
 from driving_dirty_tpu_torch.kernels.roialign import roialign, roialign_plain, sample_coords
-from driving_dirty_tpu_torch.kernels.trunk import out_hw, trunk, trunk_plain
+from driving_dirty_tpu_torch.kernels.trunk import (VARIANT_STAGES, out_hw, prepare_weights, trunk,
+                                                   trunk_plain, trunk_variant, trunk_variant_plain)
 from driving_dirty_tpu_torch.models.faster_rcnn import BBFasterRCNN, FasterRCNNRoadMap
 from driving_dirty_tpu_torch.models.multitask import MultiTask
 from driving_dirty_tpu_torch.models.roadmap import RoadMapBCEv2
@@ -98,11 +108,13 @@ from driving_dirty_tpu_torch.models.spatial_bb import BBSpatialModel, BBSpatialR
 from driving_dirty_tpu_torch.ops import detection as det
 from driving_dirty_tpu_torch.ops.maps import raster_geometry
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
+from driving_dirty_tpu_torch.scripts.probe_trunk_variants import device_line, probe_inputs, run_probe
 
 SEED = 0
 BATCH = 8
 VIEW_H, VIEW_W = 256, 306
 PANO = (VIEW_H, 6 * VIEW_W)          # 256 x 1836, the roadmap path's trunk input
+PROBE_RUNS = ((torch.float32, BATCH), (torch.bfloat16, BATCH), (torch.bfloat16, 64))  # B1' (dtype, batch)
 LAYOUT = (800, 800)                  # the detection path's trunk input (the layout image)
 REQUESTS = 5                         # timed requests per precision, after one warm-up
 HPARAMS = dict(ae_hidden_dim=128, ae_latent_dim=64, pretrained_path=None, batch_size=BATCH)
@@ -179,12 +191,6 @@ DET_TOL = {32: 1e-4, 16: 2.0 ** -5}
 # other can swap ranks, and a swap changes a detection only at a cut-off or
 # between overlapping boxes of one class.
 DET_AGREEMENT = 0.99
-
-
-def device_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def cuda_ms(fn, budget_ms: float = 400.0) -> float:
@@ -290,6 +296,77 @@ def kernel_phase(gen) -> list[dict]:
         print(f"trunk {str(dtype)[6:]} {list(x.shape)}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"library {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})", flush=True)
         del x, p, c
+        torch.cuda.empty_cache()
+    return records
+
+
+def variant_bound_ms(x, stages: int) -> tuple[float, str]:
+    """Least time of one stage-bisection variant at x's shape: the operations
+    its output needs (v1: c1 at the c3 positions; v3: c1 everywhere and c2
+    at the c3 positions; full: the trunk) over the peak of x's dtype, and
+    its bytes (the input it reads, all of x but for v0's quarter, and the
+    output) over 3.35 TB/s."""
+    if stages == 3:
+        return trunk_bound_ms(x)
+    b, h, w, _ = x.shape
+    ho, wo = out_hw(h, w)
+    macs = b * ((0, ho * wo * 32 * 27, h * w * 32 * 27 + ho * wo * 32 * 288)[stages])
+    pixels_in = b * ho * wo if stages == 0 else b * h * w
+    nbytes = (pixels_in * 3 + b * ho * wo * 32) * x.element_size()
+    t_ops, t_bytes = 2 * macs / PEAK_OPS[x.dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def variant_library(x, w1, b1, w2, b2, w3, b3, *, stages: int):
+    """cuDNN's conv chain cut to a variant's output (v1: c1 at stride 2; v3:
+    c1, then c2 at stride 2), channels-last; None for v0. Timed only."""
+    y = x.permute(0, 3, 1, 2)
+    for i, (w, b) in enumerate(((w1, b1), (w2, b2), (w3, b3))[:stages]):
+        w = w.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        stride = 2 if i == stages - 1 else 1  # the last conv runs at the c3 positions only
+        y = torch.relu(torch.nn.functional.conv2d(y, w, b.to(x.dtype), stride=stride, padding=1))
+    return y
+
+
+def probe_phase() -> list[dict]:
+    """B1': every variant against its plain version and "full" against
+    `trunk`, then the probe's entry point with the launch count read around
+    it, for each PROBE_RUNS (dtype, batch) at the panorama shape."""
+    records = []
+    for dtype, batch in PROBE_RUNS:
+        x, p = probe_inputs(batch, dtype)
+        label = f"trunk_variant {str(dtype)[6:]} {list(x.shape)}"
+        checks = {}
+        for v in VARIANT_STAGES:
+            checks[v] = hold(f"{label} {v}", trunk_variant(x, *p, variant=v),
+                             trunk_variant_plain(x, *p, variant=v), TOL[dtype])
+        if not torch.equal(trunk_variant(x, *p, variant="full"), trunk(x, *p)):
+            raise RuntimeError(f"{label}: full differs from trunk")
+        print(f"{label}: full equals trunk bit for bit", flush=True)
+        trunk_variant.launches = 0
+        probe = run_probe(batch, dtype)
+        launches = trunk_variant.launches
+        if sum(r["launches"] for r in probe) != launches or not all(r["launches"] for r in probe):
+            raise RuntimeError(f"{label}: probe launches {[r['launches'] for r in probe]}, counted {launches}")
+        for r in probe:
+            v, stages = r["variant"], r["stages"]
+            plain_ms = cuda_ms(lambda: trunk_variant_plain(x, *p, variant=v))
+            library_ms = cuda_ms(lambda: variant_library(x, *p, stages=stages)) if stages else None
+            bound_ms, bound_by = variant_bound_ms(x, stages)
+            same = [u for u, s in VARIANT_STAGES.items() if s == stages and u != v]
+            records.append({
+                "name": "trunk_variant", "route": "cuda", "source": "driving_dirty_tpu_torch/csrc/trunk.cu",
+                "replaces": f"scripts/probe_trunk_variants.py:123 ({v})", "variant": v, "stages": stages,
+                "same_program_as": same, "path": "probe", "shape": list(x.shape), "dtype": str(dtype)[6:],
+                **{k: checks[v][k] for k in ("max_abs_err", "tol", "max_abs_plain")},
+                "launches": r["launches"], "ms": r["ms"], "scenes_per_s": r["scenes_per_s"],
+                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "roofline_share": bound_ms / r["ms"]})
+            print(f"{label} {v}: kernel {r['ms']:.3f} ms ({r['scenes_per_s']:.1f} scenes/s, "
+                  f"{r['launches']} launches), plain {plain_ms:.3f} ms, library "
+                  f"{'-' if library_ms is None else f'{library_ms:.3f} ms'}, bound {bound_ms:.4f} ms "
+                  f"({bound_by})", flush=True)
+        del x, p
         torch.cuda.empty_cache()
     return records
 
@@ -420,6 +497,15 @@ def serving_phase(ckpt: Path, smi: str) -> dict:
     for precision in (32, 16):
         tf32_line(f"roadmap serving precision {precision}")
         model = load_roadmap_model(str(ckpt), precision=precision, device="cuda")
+        prepare_weights.calls = 0
+        for req in requests[:2]:
+            model.predict(torch.from_numpy(req).cuda())
+        torch.cuda.synchronize()
+        print(f"roadmap precision {precision}: the trunk's kernel weights built "
+              f"{prepare_weights.calls} time(s) over two predict calls", flush=True)
+        if prepare_weights.calls != 1:
+            raise RuntimeError(f"precision {precision}: prepare_weights ran {prepare_weights.calls} "
+                               "times over two predict calls, expected 1")
         reset_launches()
         masks, _ = serve(model, requests[:1])  # warm-up: allocator, cuDNN, first launch
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -836,6 +922,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = kernel_phase(gen)
+    variant_recs = probe_phase()
     tf32_line("kernel phases")
     raster_rec = raster_phase()
     roialign_recs = roialign_phase(gen)
@@ -860,7 +947,7 @@ def main() -> int:
     for r in roialign_recs:
         precision = 32 if r["dtype"] == "float32" else 16
         r["launches"] = detection[f"faster_rcnn_rm_{precision}"]["predict_launches"]["roialign"]
-    records += roialign_recs
+    records += roialign_recs + variant_recs
     print(json.dumps({"serving": served, "box_family": boxes, "detection": detection}))
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -3,29 +3,38 @@
 
 Replaces the TPU kernel driving_dirty_tpu/pallas/trunk.py:fused_trunk with a
 CUDA C++ kernel written for sm_90a (csrc/trunk.cu), built by nvcc and called
-through ctypes (kernels/build.py).
+through ctypes (kernels/build.py). Its stage switch replaces the bisection
+variants of scripts/probe_trunk_variants.py (`trunk_variant`).
 
 What bounds it on the H100: per 256x1836 panorama the trunk does 11.64 GFLOP
-(c1 0.81, c2 8.66, c3 2.17) and must move 20.7 MB in f32 (5.6 MB in, 15.0 MB
-out), so it is bound by operations: 174 us/scene at 67 TFLOP/s on the f32
-CUDA cores, 11.8 us/scene at 989 TFLOP/s on the bf16 tensor cores. A plain
-conv chain also writes c1 and c2 (60 MB each per scene in f32) to device
+(c1 0.81, c2 8.66, c3 2.17) and must move 10.3 MB in bf16 (20.7 MB in f32),
+so it is bound by operations: 11.8 us/scene at 989 TFLOP/s on the bf16
+tensor cores, 174 us/scene at 67 TFLOP/s on the f32 CUDA cores. A plain
+conv chain also writes c1 and c2 (30 MB each per scene in bf16) to device
 memory and reads them back.
 
-What the design does about it: one CTA per 4x16 tile of c3 keeps c1 and c2
-in shared memory, so device memory sees only the input and c3; the convs run
-as register-blocked f32 FMAs on the CUDA cores (f32 accumulation in both
-dtypes). Moving c2 and c3 onto the tensor cores (wgmma) is later work. The
-csrc header states the tiling and the shared-memory budget.
+What the design does about it: c1 and c2 stay in shared memory, so device
+memory sees only the input and c3. In bf16 each conv is an implicit GEMM on
+the tensor cores (mma.sync, A fragments gathered with ldmatrix from the
+swizzled activation tile, weights staged once per CTA of a persistent grid
+of 8x16 c3 tiles); in f32 the convs run as register-blocked FMAs on the
+CUDA cores (4x16 tiles), since TF32 would miss the f32 tolerance. The csrc
+header states the tilings and the shared-memory budgets.
 
-`trunk` launches the kernel on a CUDA tensor and uses `trunk_plain`, the
-plain PyTorch version, only for a tensor on the CPU. There is no autograd
-yet: the wrapper raises if asked for a gradient.
+The kernels take their weights in their own layouts (`prepare_weights`),
+built once per (weight tensors, dtype) and cached (`kernel_weights`).
+
+`trunk` and `trunk_variant` launch the kernel on a CUDA tensor and use the
+plain PyTorch versions (`trunk_plain`, `trunk_variant_plain`) only for a
+tensor on the CPU. There is no autograd yet: the wrappers raise if asked for
+a gradient.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import warnings
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -36,33 +45,130 @@ C = 32  # trunk width, fixed by the architecture
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _W_SHAPES = ((C, 3, 3, 3), (C, C, 3, 3), (C, C, 3, 3))
 
+# The stage bisection of scripts/probe_trunk_variants.py, by the stage the
+# kernel stops after (0 input, 1 c1, 2 c2, 3 c3). The Hopper kernel writes
+# c1 straight into the swizzled layout that c2's ldmatrix reads, so the JAX
+# probe's "+shuffle1" (v2) runs the same program as v1, and its "c2 without
+# the shuffle" (v3) the same as v4.
+VARIANT_STAGES = {"v0": 0, "v1": 1, "v2": 1, "v3": 2, "v4": 2, "full": 3}
+
 
 def out_hw(h: int, w: int) -> tuple[int, int]:
     """(H', W') of c3: stride-2 halving with padding 1."""
     return (h + 1) // 2, (w + 1) // 2
 
 
-def trunk_plain(x, w1, b1, w2, b2, w3, b3):
-    """[b, H, W, 3] -> [b, (H+1)//2, (W+1)//2, 32]; conv weights OIHW.
+def trunk_stages(x, w1, b1, w2, b2, w3, b3, stages: int = 3):
+    """The plain trunk's first `stages` convs, NHWC: [c1, c2, c3][:stages].
 
     Weights and biases are cast to x's dtype, as xla_trunk casts them."""
     def conv(v, w, b, stride):
         return F.relu(F.conv2d(v, w.to(v.dtype), b.to(v.dtype), stride=stride, padding=1))
 
     y = x.permute(0, 3, 1, 2)
-    y = conv(y, w1, b1, 1)
-    y = conv(y, w2, b2, 1)
-    y = conv(y, w3, b3, 2)
-    return y.permute(0, 2, 3, 1).contiguous()
+    out = []
+    for w, b, stride in ((w1, b1, 1), (w2, b2, 1), (w3, b3, 2))[:stages]:
+        y = conv(y, w, b, stride)
+        out.append(y.permute(0, 2, 3, 1).contiguous())
+    return out
+
+
+def trunk_plain(x, w1, b1, w2, b2, w3, b3):
+    """[b, H, W, 3] -> [b, (H+1)//2, (W+1)//2, 32]; conv weights OIHW."""
+    return trunk_stages(x, w1, b1, w2, b2, w3, b3)[-1]
+
+
+def trunk_variant_plain(x, w1, b1, w2, b2, w3, b3, *, variant: str):
+    """What `trunk_variant` writes: [b, (H+1)//2, (W+1)//2, 32], the stage of
+    `variant` at (2oy, 2ox). v0: the input, channel c holding x[..., c % 3];
+    v1, v2: c1; v3, v4: c2; full: c3 (`trunk_plain`)."""
+    stages = _stages(variant)
+    if stages == 0:
+        return x[:, ::2, ::2][..., [c % 3 for c in range(C)]].contiguous()
+    y = trunk_stages(x, w1, b1, w2, b2, w3, b3, stages)[-1]
+    return y if stages == 3 else y[:, ::2, ::2].contiguous()
+
+
+def _stages(variant: str) -> int:
+    if variant not in VARIANT_STAGES:
+        raise ValueError(f"unknown trunk variant {variant!r}; one of {sorted(VARIANT_STAGES)}")
+    return VARIANT_STAGES[variant]
+
+
+def _fragments(w):
+    """HWIO -> the mma.sync B-operand fragment order of csrc/trunk.cu:
+    B[k][n] with k = (ky*3 + kx)*Cin + ci (zero rows pad K to a multiple of
+    16), laid out [k-step][n-pair][lane = 4g + tg][n8 tile of the pair]
+    [k-half][2], where k = 16*step + 8*half + 2*tg + e and n = 8*(2*pair +
+    tile) + g."""
+    b = w.reshape(-1, C)
+    b = torch.cat([b, b.new_zeros((-b.shape[0] % 16, C))])
+    s = b.shape[0] // 16
+    return b.reshape(s, 2, 4, 2, 2, 2, 8).permute(0, 4, 6, 2, 5, 1, 3).reshape(-1)
+
+
+def prepare_weights(ws, bs, dtype):
+    """The kernel's weights for activations of `dtype`: (weights, biases).
+
+    Weights and biases take the values that `dtype` rounds them to
+    (xla_trunk casts them so). float32: the three HWIO weights flattened one
+    after another, f32. bfloat16: the three weights in mma fragment order
+    (`_fragments`), bf16. Biases: [b1 | b2 | b3], f32. Counts its builds in
+    `prepare_weights.calls`."""
+    hwio = [w.detach().to(dtype).permute(2, 3, 1, 0) for w in ws]
+    if dtype == torch.float32:
+        weights = torch.cat([w.reshape(-1) for w in hwio])
+    else:
+        weights = torch.cat([_fragments(w) for w in hwio])
+    biases = torch.cat([b.detach().to(dtype).float() for b in bs])
+    prepare_weights.calls += 1
+    return weights.contiguous(), biases
+
+
+prepare_weights.calls = 0
+
+# (ids of the weight tensors, dtype) -> (weak references to them, their
+# (data_ptr, _version), prepare_weights' result)
+_PREPARED: dict = {}
+
+
+def kernel_weights(ws, bs, dtype):
+    """prepare_weights(ws, bs, dtype), cached per (weight tensors, dtype).
+
+    An entry is used again only for the same live tensors with the same
+    data_ptr and _version, so load_state_dict, an in-place update or a new
+    storage builds anew, and a freed tensor's reused id cannot hit.
+    Inference tensors (made under torch.inference_mode) keep no version, and
+    inside inference mode they can be written in place at the same data_ptr,
+    so a cached layout could go stale unseen: they are never cached, every
+    call builds the layout anew and a warning says so. To keep the cache,
+    create or load the weights outside inference mode and serve under
+    torch.no_grad or torch.inference_mode."""
+    ts = (*ws, *bs)
+    if any(t.is_inference() for t in ts):
+        warnings.warn("trunk weights are inference tensors, which keep no version; their "
+                      "kernel layout is built on every call, not cached. Create or load the "
+                      "weights outside torch.inference_mode to cache it.", stacklevel=2)
+        return prepare_weights(ws, bs, dtype)
+    key = (tuple(id(t) for t in ts), dtype)
+    stamp = tuple((t.data_ptr(), t._version) for t in ts)
+    hit = _PREPARED.get(key)
+    if hit is not None and hit[1] == stamp and all(r() is t for r, t in zip(hit[0], ts)):
+        return hit[2]
+    for k in [k for k, v in _PREPARED.items() if any(r() is None for r in v[0])]:
+        del _PREPARED[k]
+    prepared = prepare_weights(ws, bs, dtype)
+    _PREPARED[key] = (tuple(weakref.ref(t) for t in ts), stamp, prepared)
+    return prepared
 
 
 @functools.cache
 def _entry():
-    """The C entry of the trunk library, built and typed on first use."""
-    fn = load_library("trunk").dd_trunk_forward
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    """The trunk library's C entry dd_trunk, built and typed on first use."""
+    entry = load_library("trunk").dd_trunk
+    entry.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    return entry
 
 
 def _check(x, ws, bs):
@@ -89,6 +195,27 @@ def _check(x, ws, bs):
         raise NotImplementedError("the trunk kernel has no backward yet; call it under torch.no_grad()")
 
 
+def _launch(x, params, stages):
+    """Check, allocate and launch dd_trunk(stages) on x's device and current
+    stream."""
+    if x.device.type != "cuda":
+        raise ValueError(f"trunk runs on cuda or cpu tensors, got {x.device}")
+    ws, bs = params[0::2], params[1::2]
+    _check(x, ws, bs)
+    b, h, w, _ = x.shape
+    out = torch.empty((b, *out_hw(h, w), C), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    weights, biases = kernel_weights(ws, bs, x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _entry()(stages, _DTYPE_CODE[x.dtype], x.data_ptr(), weights.data_ptr(),
+                       biases.data_ptr(), out.data_ptr(), b, h, w, stream)
+    if err != 0:
+        raise RuntimeError(f"trunk kernel launch failed with CUDA error {err}")
+    return out
+
+
 def trunk(x, w1, b1, w2, b2, w3, b3):
     """c1 -> c2 -> c3 trunk. [b, H, W, 3] -> [b, (H+1)//2, (W+1)//2, 32] in x's
     dtype (float32 or bfloat16); conv weights OIHW, biases [32].
@@ -97,28 +224,29 @@ def trunk(x, w1, b1, w2, b2, w3, b3):
     one to `trunk.launches`); on a CPU tensor it is `trunk_plain`."""
     if x.device.type == "cpu":
         return trunk_plain(x, w1, b1, w2, b2, w3, b3)
-    if x.device.type != "cuda":
-        raise ValueError(f"trunk runs on cuda or cpu tensors, got {x.device}")
-    ws, bs = (w1, w2, w3), (b1, b2, b3)
-    _check(x, ws, bs)
-    b, h, w, _ = x.shape
-    out = torch.empty((b, *out_hw(h, w), C), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    # Kernel layout: f32 HWIO [3, 3, Cin, 32] holding the values that the
-    # activation dtype rounds the weights to (xla_trunk casts them so).
-    kw = [t.to(x.dtype).float().permute(2, 3, 1, 0).contiguous() for t in ws]
-    kb = [t.to(x.dtype).float().contiguous() for t in bs]
-    with torch.cuda.device(x.device):
-        err = _entry()(
-            _DTYPE_CODE[x.dtype], x.data_ptr(),
-            kw[0].data_ptr(), kb[0].data_ptr(), kw[1].data_ptr(), kb[1].data_ptr(),
-            kw[2].data_ptr(), kb[2].data_ptr(), out.data_ptr(), b, h, w,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"trunk kernel launch failed with CUDA error {err}")
-    trunk.launches += 1
+    out = _launch(x, (w1, b1, w2, b2, w3, b3), VARIANT_STAGES["full"])
+    if out.numel():
+        trunk.launches += 1
     return out
 
 
 trunk.launches = 0
+
+
+def trunk_variant(x, w1, b1, w2, b2, w3, b3, *, variant: str):
+    """One stage-bisection variant of the trunk kernel (VARIANT_STAGES), as
+    `trunk_variant_plain` defines its output. "full" is the kernel that
+    `trunk` launches.
+
+    On a CUDA tensor this launches the kernel (and adds one to
+    `trunk_variant.launches`); on a CPU tensor it is `trunk_variant_plain`."""
+    stages = _stages(variant)
+    if x.device.type == "cpu":
+        return trunk_variant_plain(x, w1, b1, w2, b2, w3, b3, variant=variant)
+    out = _launch(x, (w1, b1, w2, b2, w3, b3), stages)
+    if out.numel():
+        trunk_variant.launches += 1
+    return out
+
+
+trunk_variant.launches = 0

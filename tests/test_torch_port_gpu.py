@@ -7,7 +7,8 @@ they are absent (the card's machine):
     python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest -p no:cacheprovider
 
 The `gpu` tests decide inside the test whether a card exists and skip
-without one. Trunk tolerances as in chip_smoke.py, scaled by max|plain|:
+without one. Trunk tolerances as in chip_smoke.py, for the trunk and each of
+its stage-bisection variants, scaled by max|plain|:
 f32 2e-4 (f32 sums in another order; cuDNN with TF32 off), bf16 2^-6 (c1,
 c2 and c3 rounded to bf16 at the same points from sums in another order:
 2 to 4 bf16 ulps at the largest output). The box rasterizer must equal its
@@ -37,15 +38,16 @@ ROI_TOL = 4e-6
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 17, 35, 3), (1, 64, 306, 3), (2, 256, 1836, 3)])
+@pytest.mark.parametrize("shape", [
+    (2, 17, 35, 3), (1, 64, 306, 3), (2, 256, 1836, 3),
+    (40, 64, 96, 3),   # more 8 x 16 tiles (1280) than one wave of the persistent grid
+    (3, 37, 101, 3),   # c3 19 x 51: H and W not multiples of the tile
+])
 def test_trunk_kernel_matches_plain_on_gpu(shape, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.RandomState(0)
-    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda().to(getattr(torch, dtype))
-    wshapes = [(32, 3, 3, 3), (32,), (32, 32, 3, 3), (32,), (32, 32, 3, 3), (32,)]
-    ws = [torch.from_numpy((rng.randn(*s) * 0.2).astype(np.float32)).cuda() for s in wshapes]
+    x, ws = _trunk_inputs(shape, dtype)
     launches = K.trunk.launches
     got = K.trunk(x, *ws)
     ref = K.trunk_plain(x, *ws)
@@ -56,20 +58,50 @@ def test_trunk_kernel_matches_plain_on_gpu(shape, dtype):
     assert err <= TOL[dtype] * ref.float().abs().max().item()
 
 
+def _trunk_inputs(shape, dtype):
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda().to(getattr(torch, dtype))
+    wshapes = [(32, 3, 3, 3), (32,), (32, 32, 3, 3), (32,), (32, 32, 3, 3), (32,)]
+    return x, [torch.from_numpy((rng.randn(*s) * 0.2).astype(np.float32)).cuda() for s in wshapes]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 17, 35, 3), (3, 37, 101, 3), (40, 64, 96, 3)])
+def test_trunk_variants_match_plain_on_gpu(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    x, ws = _trunk_inputs(shape, dtype)
+    launches = K.trunk_variant.launches
+    for variant in K.VARIANT_STAGES:
+        got = K.trunk_variant(x, *ws, variant=variant)
+        ref = K.trunk_variant_plain(x, *ws, variant=variant)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, 32)
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= TOL[dtype] * ref.float().abs().max().item(), variant
+    assert K.trunk_variant.launches == launches + len(K.VARIANT_STAGES)
+    assert torch.equal(K.trunk_variant(x, *ws, variant="full"), K.trunk(x, *ws))
+
+
 @pytest.mark.gpu
 def test_trunk_kernel_rejects_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     ws = [torch.zeros(s, device="cuda") for s in
           [(32, 3, 3, 3), (32,), (32, 32, 3, 3), (32,), (32, 32, 3, 3), (32,)]]
-    with pytest.raises(TypeError):
-        K.trunk(torch.zeros(1, 8, 8, 3, device="cuda", dtype=torch.float16), *ws)
+    for fn, kw in ((K.trunk, {}), (K.trunk_variant, {"variant": "v1"})):
+        with pytest.raises(TypeError):
+            fn(torch.zeros(1, 8, 8, 3, device="cuda", dtype=torch.float16), *ws, **kw)
+        with pytest.raises(ValueError):
+            fn(torch.zeros(1, 8, 8, 4, device="cuda"), *ws, **kw)
+        with pytest.raises(ValueError):
+            fn(torch.zeros(1, 8, 16, 3, device="cuda")[:, :, ::2], *ws, **kw)
+        with pytest.raises(NotImplementedError):
+            fn(torch.zeros(1, 8, 8, 3, device="cuda", requires_grad=True), *ws, **kw)
     with pytest.raises(ValueError):
-        K.trunk(torch.zeros(1, 8, 8, 4, device="cuda"), *ws)
-    with pytest.raises(ValueError):
-        K.trunk(torch.zeros(1, 8, 16, 3, device="cuda")[:, :, ::2], *ws)
-    with pytest.raises(NotImplementedError):
-        K.trunk(torch.zeros(1, 8, 8, 3, device="cuda", requires_grad=True), *ws)
+        K.trunk_variant(torch.zeros(1, 8, 8, 3, device="cuda"), *ws, variant="v5")
 
 
 @pytest.mark.gpu
