@@ -9,8 +9,10 @@
 2. Trunk kernel phase (B1): calls the trunk kernel on the card at the shape
    the main path gives it, holds it against its plain PyTorch version with a
    stated tolerance, and times the kernel, the plain version and one library
-   call that computes the same function. bf16 runs on the tensor cores
-   (mma.sync), f32 on the CUDA cores.
+   call that computes the same function. Both dtypes run on the tensor
+   cores (mma.sync): bf16 products, and f32 by split TF32 (three TF32
+   products a product); the f32 bound counts those three, with the f32
+   CUDA-core bound beside it.
 2b. Trunk stage-bisection phase (B1'): at f32 and bf16 [8, 256, 1836, 3]
    and at the JAX probe's bf16 [64, 256, 1836, 3], holds every variant of
    the trunk kernel (v0 .. full) against its plain version, checks that
@@ -54,7 +56,9 @@
    spatial_scale 0.5: the kernel against its plain version, then its device
    time (torch.profiler), its time per call back to back, the plain
    version's, the two-call grid_sample + avg_pool2d yardstick's, and the
-   bound from the feature pixels these rois touch. Also three odd shapes.
+   bound from the feature pixels these rois touch. Also three odd shapes
+   and a feature view 4 B off 16-B alignment; each shape prints the
+   kernel instantiation it ran (16 B of channels a thread, or one).
 7. Detection phase: a full-width FasterRCNNRoadMap (the JAX package's
    defaults: 800-px layout image, anchors 32..512 x {0.5, 1, 2}, 2000
    pre-NMS and 1000 post-NMS proposals, mlp 1024, 9 classes) from a seed,
@@ -98,7 +102,8 @@ from driving_dirty_tpu_torch.data.boxes import box_scenes, detection_rois, detec
 from driving_dirty_tpu_torch.export import load_task_ckpt, save_task_ckpt
 from driving_dirty_tpu_torch.kernels import build
 from driving_dirty_tpu_torch.kernels.raster import raster, raster_plain
-from driving_dirty_tpu_torch.kernels.roialign import roialign, roialign_plain, sample_coords
+from driving_dirty_tpu_torch.kernels.roialign import (channels_per_thread, roialign, roialign_plain,
+                                                      sample_coords)
 from driving_dirty_tpu_torch.kernels.trunk import (VARIANT_STAGES, out_hw, prepare_weights, trunk,
                                                    trunk_plain, trunk_variant, trunk_variant_plain)
 from driving_dirty_tpu_torch.models.faster_rcnn import BBFasterRCNN, FasterRCNNRoadMap
@@ -120,15 +125,20 @@ REQUESTS = 5                         # timed requests per precision, after one w
 HPARAMS = dict(ae_hidden_dim=128, ae_latent_dim=64, pretrained_path=None, batch_size=BATCH)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s by type
+# (float32 on the CUDA cores, tf32 and bfloat16 on the tensor cores)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS = {torch.float32: 67e12, "tf32": 495e12, torch.bfloat16: 989e12}
+F32_PRODUCTS = 3  # TF32 products per f32 product in the f32 trunk (split TF32)
+TRUNK_DESIGN = {torch.float32: "split-tf32 mma.sync.m16n8k8", torch.bfloat16: "mma.sync.m16n8k16"}
 
 # Trunk kernel vs plain version, max |error| <= TOL * max|plain| (no floor:
 # the outputs here are well below 1, so an absolute floor would let a wrong
 # kernel through):
-#  f32: both accumulate in f32 (cuDNN with TF32 off), in another order over
-#       K <= 288 terms: 2e-4 of the largest output covers the reassociation,
-#       as the JAX package's fused-vs-XLA trunk test allows.
+#  f32: the kernel's split-TF32 products are within about 2^-21 of f32
+#       products (a few 1e-6 of the largest output over K <= 288 terms),
+#       and both accumulate in f32 (cuDNN with TF32 off), in another order:
+#       2e-4 of the largest output covers that, as the JAX package's
+#       fused-vs-XLA trunk test allows; one TF32 product alone misses it.
 #  bf16: both round c1, c2 and c3 to bf16, but from sums taken in another
 #       order (and cuDNN may round the sum before adding the bias), so an
 #       output can land an ulp or two away (2^-8..2^-7 of its size each).
@@ -233,13 +243,29 @@ def trunk_library(x, w1, b1, w2, b2, w3, b3):
     return y
 
 
-def trunk_bound_ms(x) -> tuple[float, str]:
+def conv_bound(macs: int, nbytes: int, dtype) -> dict:
+    """Least time of a trunk kernel's `macs` products and `nbytes` of traffic
+    -> {"bound_ms", "bound_by"}: bf16 products on the bf16 tensor cores;
+    f32 ones as F32_PRODUCTS TF32 products each, the work of the split-TF32
+    kernel, and beside it "cuda_core_bound_ms", the same f32 products as
+    FMAs on the CUDA cores."""
+    t_bytes = nbytes / PEAK_BYTES
+    if dtype == torch.float32:
+        t_ops = F32_PRODUCTS * 2 * macs / PEAK_OPS["tf32"]
+    else:
+        t_ops = 2 * macs / PEAK_OPS[dtype]
+    rec = {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if dtype == torch.float32:
+        rec["cuda_core_bound_ms"] = 1e3 * max(2 * macs / PEAK_OPS[torch.float32], t_bytes)
+    return rec
+
+
+def trunk_bound(x) -> dict:
     b, h, w, _ = x.shape
     ho, wo = out_hw(h, w)
     macs = b * (h * w * 32 * 27 + h * w * 32 * 288 + ho * wo * 32 * 288)
     nbytes = (x.numel() + b * ho * wo * 32) * x.element_size() + 4 * (2 * 32 * 32 * 9 + 32 * 27 + 96)
-    t_ops, t_bytes = 2 * macs / PEAK_OPS[x.dtype], nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return conv_bound(macs, nbytes, x.dtype)
 
 
 def hold(what: str, got, ref, rel_tol: float) -> dict:
@@ -283,38 +309,40 @@ def kernel_phase(gen) -> list[dict]:
         ms = cuda_ms(lambda: trunk(x, *p))
         plain_ms = cuda_ms(lambda: trunk_plain(x, *p))
         library_ms = cuda_ms(lambda: trunk_library(x, *p))
-        bound_ms, bound_by = trunk_bound_ms(x)
+        bound = trunk_bound(x)
         records.append({
             "name": "trunk", "route": "cuda", "source": "driving_dirty_tpu_torch/csrc/trunk.cu",
             "replaces": "driving_dirty_tpu/pallas/trunk.py:245 (fused_trunk)",
-            "path": path, "shape": list(x.shape), "dtype": str(dtype)[6:],
+            "design": TRUNK_DESIGN[dtype], "path": path, "shape": list(x.shape), "dtype": str(dtype)[6:],
             **{k: c[k] for k in ("max_abs_err", "tol", "mean_abs_err", "max_abs_plain",
                                  "mean_abs_plain")},
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "roofline_share": bound_ms / ms,
+            **bound, "roofline_share": bound["bound_ms"] / ms,
         })
-        print(f"trunk {str(dtype)[6:]} {list(x.shape)}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"library {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+        cuda_core = (f", CUDA-core f32 bound {bound['cuda_core_bound_ms']:.3f} ms"
+                     if "cuda_core_bound_ms" in bound else "")
+        print(f"trunk {str(dtype)[6:]} {list(x.shape)} ({TRUNK_DESIGN[dtype]}): kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+              f"({bound['bound_by']}){cuda_core}", flush=True)
         del x, p, c
         torch.cuda.empty_cache()
     return records
 
 
-def variant_bound_ms(x, stages: int) -> tuple[float, str]:
-    """Least time of one stage-bisection variant at x's shape: the operations
-    its output needs (v1: c1 at the c3 positions; v3: c1 everywhere and c2
-    at the c3 positions; full: the trunk) over the peak of x's dtype, and
-    its bytes (the input it reads, all of x but for v0's quarter, and the
-    output) over 3.35 TB/s."""
+def variant_bound(x, stages: int) -> dict:
+    """Least time of one stage-bisection variant at x's shape (conv_bound):
+    the products its output needs (v1: c1 at the c3 positions; v3: c1
+    everywhere and c2 at the c3 positions; full: the trunk), and its bytes
+    (the input it reads, all of x but for v0's quarter, and the output)
+    over 3.35 TB/s."""
     if stages == 3:
-        return trunk_bound_ms(x)
+        return trunk_bound(x)
     b, h, w, _ = x.shape
     ho, wo = out_hw(h, w)
     macs = b * ((0, ho * wo * 32 * 27, h * w * 32 * 27 + ho * wo * 32 * 288)[stages])
     pixels_in = b * ho * wo if stages == 0 else b * h * w
     nbytes = (pixels_in * 3 + b * ho * wo * 32) * x.element_size()
-    t_ops, t_bytes = 2 * macs / PEAK_OPS[x.dtype], nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return conv_bound(macs, nbytes, x.dtype)
 
 
 def variant_library(x, w1, b1, w2, b2, w3, b3, *, stages: int):
@@ -352,20 +380,21 @@ def probe_phase() -> list[dict]:
             v, stages = r["variant"], r["stages"]
             plain_ms = cuda_ms(lambda: trunk_variant_plain(x, *p, variant=v))
             library_ms = cuda_ms(lambda: variant_library(x, *p, stages=stages)) if stages else None
-            bound_ms, bound_by = variant_bound_ms(x, stages)
+            bound = variant_bound(x, stages)
             same = [u for u, s in VARIANT_STAGES.items() if s == stages and u != v]
             records.append({
                 "name": "trunk_variant", "route": "cuda", "source": "driving_dirty_tpu_torch/csrc/trunk.cu",
-                "replaces": f"scripts/probe_trunk_variants.py:123 ({v})", "variant": v, "stages": stages,
+                "replaces": f"scripts/probe_trunk_variants.py:123 ({v})", "design": TRUNK_DESIGN[dtype],
+                "variant": v, "stages": stages,
                 "same_program_as": same, "path": "probe", "shape": list(x.shape), "dtype": str(dtype)[6:],
                 **{k: checks[v][k] for k in ("max_abs_err", "tol", "max_abs_plain")},
                 "launches": r["launches"], "ms": r["ms"], "scenes_per_s": r["scenes_per_s"],
-                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "roofline_share": bound_ms / r["ms"]})
+                "plain_ms": plain_ms, "library_ms": library_ms, **bound,
+                "roofline_share": bound["bound_ms"] / r["ms"]})
             print(f"{label} {v}: kernel {r['ms']:.3f} ms ({r['scenes_per_s']:.1f} scenes/s, "
                   f"{r['launches']} launches), plain {plain_ms:.3f} ms, library "
-                  f"{'-' if library_ms is None else f'{library_ms:.3f} ms'}, bound {bound_ms:.4f} ms "
-                  f"({bound_by})", flush=True)
+                  f"{'-' if library_ms is None else f'{library_ms:.3f} ms'}, bound {bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']})", flush=True)
         del x, p
         torch.cuda.empty_cache()
     return records
@@ -715,18 +744,32 @@ def roialign_library(feats_nchw, grid):
     return torch.nn.functional.avg_pool2d(y, 2)
 
 
+def roialign_design(feats) -> str:
+    """The kernel instantiation that roialign launches for these features."""
+    v = channels_per_thread(feats)
+    return f"{v} channels a thread, 16-B loads" if v > 1 else "1 channel a thread, scalar loads"
+
+
 def roialign_phase(gen) -> list[dict]:
     records = []
     for b, h, w, c, r in ROI_ODD:
         for dtype in (torch.float32, torch.bfloat16):
             feats = torch.rand((b, h, w, c), generator=gen, device="cuda").to(dtype)
             rois = torch.from_numpy(detection_rois(SEED + r, b, r, 2 * max(h, w))).cuda()
-            hold(f"roialign {str(dtype)[6:]} {[b, h, w, c]} R={r}", roialign(feats, rois, **ROI_KW),
-                 roialign_plain(feats, rois, **ROI_KW), ROI_TOL)
+            hold(f"roialign {str(dtype)[6:]} {[b, h, w, c]} R={r} ({roialign_design(feats)})",
+                 roialign(feats, rois, **ROI_KW), roialign_plain(feats, rois, **ROI_KW), ROI_TOL)
+    for dtype in (torch.float32, torch.bfloat16):  # 4 B off 16-B alignment
+        b, h, w, c, r = ROI_ODD[0][:3] + (32, 67)
+        off = 4 // torch.tensor([], dtype=dtype).element_size()
+        feats = torch.rand(b * h * w * c + off, generator=gen, device="cuda").to(dtype)[off:].view(b, h, w, c)
+        rois = torch.from_numpy(detection_rois(SEED + r, b, r, 2 * max(h, w))).cuda()
+        hold(f"roialign {str(dtype)[6:]} {[b, h, w, c]} R={r}, data 4 B off 16-B alignment "
+             f"({roialign_design(feats)})", roialign(feats, rois, **ROI_KW),
+             roialign_plain(feats, rois, **ROI_KW), ROI_TOL)
     rois = torch.from_numpy(detection_rois(SEED, BATCH, ROIS)).cuda()
     for dtype in (torch.float32, torch.bfloat16):
         feats = torch.rand(ROI_FEATS, generator=gen, device="cuda").to(dtype)
-        name = f"roialign {str(dtype)[6:]} {list(ROI_FEATS)} R={ROIS}"
+        name = f"roialign {str(dtype)[6:]} {list(ROI_FEATS)} R={ROIS} ({roialign_design(feats)})"
         rec = hold(name, roialign(feats, rois, **ROI_KW), roialign_plain(feats, rois, **ROI_KW), ROI_TOL)
         ms = kernel_device_ms(lambda: roialign(feats, rois, **ROI_KW), "roialign_kernel")
         call_ms = cuda_ms(lambda: roialign(feats, rois, **ROI_KW))
@@ -745,6 +788,7 @@ def roialign_phase(gen) -> list[dict]:
         records.append({
             "name": "roialign", "route": "cuda", "source": "driving_dirty_tpu_torch/csrc/roialign.cu",
             "replaces": "driving_dirty_tpu/pallas/roialign.py:84 (roi_align_fused)",
+            "design": roialign_design(feats),
             "path": "detection", "shape": list(ROI_FEATS), "rois": ROIS, "dtype": str(dtype)[6:],
             **{k: rec[k] for k in ("max_abs_err", "tol", "mean_abs_err", "max_abs_plain")},
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,

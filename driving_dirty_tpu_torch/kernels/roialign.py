@@ -13,9 +13,12 @@ image the output alone is 50.2 MB (15 us at 3.35 TB/s), plus the part of
 the feature map the rois touch; the arithmetic, 16 taps x 2 operations per
 output value, is 6 us at 67 TFLOP/s. The TPU kernel contracted dense
 interpolation matrices against every feature row because Mosaic could not
-gather arbitrary rows; here each output reads its <= 16 taps directly, and
-neighbouring threads read neighbouring channels (the csrc header has the
-layout).
+gather arbitrary rows; here each output reads its <= 16 taps directly. Each
+thread owns 16 B of channels of one bin (4 in f32, 8 in bf16), so a tap is
+one 16-B load and the sums leave as 16-B streaming stores; features whose
+channels do not split so, or that do not start on 16 B, run the same
+kernel at one channel a thread (`channels_per_thread`; the csrc header has
+the layout).
 
 `roialign` launches the kernel on a CUDA tensor and uses `roialign_plain`,
 the plain PyTorch version (a direct bilinear gather in f32), only for a
@@ -33,6 +36,7 @@ import torch
 from driving_dirty_tpu_torch.kernels.build import load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_WIDE = {torch.float32: 4, torch.bfloat16: 8}  # channels in 16 B
 MAX_SAMPLES = 256  # output_size * sampling_ratio, per axis (csrc/roialign.cu)
 
 
@@ -83,11 +87,19 @@ def roialign_plain(features, rois, output_size: int = 7, spatial_scale: float = 
     return v.reshape(b, r, output_size, s, output_size, s, c).mean(dim=(3, 5))
 
 
+def channels_per_thread(features) -> int:
+    """The channels a thread of the kernel owns for these [B, H, W, C]
+    features: 16 B of them (4 float32, 8 bfloat16) where C splits into such
+    pieces and the data starts on 16 B, else 1."""
+    wide = _WIDE[features.dtype]
+    return wide if features.shape[-1] % wide == 0 and features.data_ptr() % 16 == 0 else 1
+
+
 @functools.cache
 def _entry():
     """The C entry of the RoIAlign library, built and typed on first use."""
     fn = load_library("roialign").dd_roialign_forward
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -138,7 +150,8 @@ def roialign(features, rois, output_size: int = 7, spatial_scale: float = 1.0,
         return out
     with torch.cuda.device(features.device):
         err = _entry()(
-            _DTYPE_CODE[features.dtype], features.data_ptr(), rois.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[features.dtype], channels_per_thread(features), features.data_ptr(),
+            rois.data_ptr(), out.data_ptr(),
             b, r, h, w, c, output_size, sampling_ratio, float(np.float32(spatial_scale)),
             int(aligned), torch.cuda.current_stream(features.device).cuda_stream)
     if err != 0:

@@ -9,17 +9,20 @@ variants of scripts/probe_trunk_variants.py (`trunk_variant`).
 What bounds it on the H100: per 256x1836 panorama the trunk does 11.64 GFLOP
 (c1 0.81, c2 8.66, c3 2.17) and must move 10.3 MB in bf16 (20.7 MB in f32),
 so it is bound by operations: 11.8 us/scene at 989 TFLOP/s on the bf16
-tensor cores, 174 us/scene at 67 TFLOP/s on the f32 CUDA cores. A plain
-conv chain also writes c1 and c2 (30 MB each per scene in bf16) to device
-memory and reads them back.
+tensor cores; in f32 three TF32 products per product (below), 70.5
+us/scene at 495 TFLOP/s (174 us/scene as f32 FMAs at 67 TFLOP/s on the
+CUDA cores). A plain conv chain also writes c1 and c2 (30 MB each per
+scene in bf16) to device memory and reads them back.
 
 What the design does about it: c1 and c2 stay in shared memory, so device
-memory sees only the input and c3. In bf16 each conv is an implicit GEMM on
-the tensor cores (mma.sync, A fragments gathered with ldmatrix from the
+memory sees only the input and c3. Each conv is an implicit GEMM on the
+tensor cores (mma.sync, A fragments gathered with ldmatrix from the
 swizzled activation tile, weights staged once per CTA of a persistent grid
-of 8x16 c3 tiles); in f32 the convs run as register-blocked FMAs on the
-CUDA cores (4x16 tiles), since TF32 would miss the f32 tolerance. The csrc
-header states the tilings and the shared-memory budgets.
+of c3 tiles: 8x16 in bf16, 6x16 in f32). In f32 every operand is split
+into two TF32 values (`tf32_split`) and each product taken as three TF32
+products, which keeps f32 accuracy where one TF32 product would miss the
+f32 tolerance. The csrc header states the tilings and the shared-memory
+budgets.
 
 The kernels take their weights in their own layouts (`prepare_weights`),
 built once per (weight tensors, dtype) and cached (`kernel_weights`).
@@ -97,29 +100,42 @@ def _stages(variant: str) -> int:
 
 def _fragments(w):
     """HWIO -> the mma.sync B-operand fragment order of csrc/trunk.cu:
-    B[k][n] with k = (ky*3 + kx)*Cin + ci (zero rows pad K to a multiple of
-    16), laid out [k-step][n-pair][lane = 4g + tg][n8 tile of the pair]
-    [k-half][2], where k = 16*step + 8*half + 2*tg + e and n = 8*(2*pair +
-    tile) + g."""
+    B[k][n] with k = (ky*3 + kx)*Cin + ci (zero rows pad K to a whole
+    k-step), laid out [k-step][n-pair][lane = 4g + tg][n8 tile of the pair]
+    [...], 16 B a lane and pair, with n = 8*(2*pair + tile) + g. bfloat16
+    (m16n8k16): [k-half][e] last, k = 16*step + 8*half + 2*tg + e. float32
+    (m16n8k8, split TF32 in the kernel): [e] last, k = 8*step + 4*e + tg."""
     b = w.reshape(-1, C)
+    if w.dtype == torch.float32:
+        b = torch.cat([b, b.new_zeros((-b.shape[0] % 8, C))])
+        return b.reshape(-1, 2, 4, 2, 2, 8).permute(0, 3, 5, 2, 4, 1).reshape(-1)
     b = torch.cat([b, b.new_zeros((-b.shape[0] % 16, C))])
-    s = b.shape[0] // 16
-    return b.reshape(s, 2, 4, 2, 2, 2, 8).permute(0, 4, 6, 2, 5, 1, 3).reshape(-1)
+    return b.reshape(-1, 2, 4, 2, 2, 2, 8).permute(0, 4, 6, 2, 5, 1, 3).reshape(-1)
+
+
+def tf32_split(v):
+    """The f32 kernel's split of an operand (csrc/trunk.cu), bit for bit:
+    hi = v rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 rounds a finite v; lo = v - hi truncated
+    to TF32. -> (hi, lo), f32 tensors holding TF32 values, hi + lo within
+    2^-21 of |v|. The kernel takes each product as a_lo*b_hi + a_hi*b_lo +
+    a_hi*b_hi."""
+    v = v.float().contiguous()
+    hi = ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((v - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
 
 
 def prepare_weights(ws, bs, dtype):
     """The kernel's weights for activations of `dtype`: (weights, biases).
 
     Weights and biases take the values that `dtype` rounds them to
-    (xla_trunk casts them so). float32: the three HWIO weights flattened one
-    after another, f32. bfloat16: the three weights in mma fragment order
-    (`_fragments`), bf16. Biases: [b1 | b2 | b3], f32. Counts its builds in
-    `prepare_weights.calls`."""
+    (xla_trunk casts them so): the three weights one after another in the
+    mma fragment order of `dtype` (`_fragments`; f32 stays unsplit, the
+    kernel splits it as it loads it). Biases: [b1 | b2 | b3], f32. Counts
+    its builds in `prepare_weights.calls`."""
     hwio = [w.detach().to(dtype).permute(2, 3, 1, 0) for w in ws]
-    if dtype == torch.float32:
-        weights = torch.cat([w.reshape(-1) for w in hwio])
-    else:
-        weights = torch.cat([_fragments(w) for w in hwio])
+    weights = torch.cat([_fragments(w) for w in hwio])
     biases = torch.cat([b.detach().to(dtype).float() for b in bs])
     prepare_weights.calls += 1
     return weights.contiguous(), biases

@@ -9,15 +9,18 @@ they are absent (the card's machine):
 The `gpu` tests decide inside the test whether a card exists and skip
 without one. Trunk tolerances as in chip_smoke.py, for the trunk and each of
 its stage-bisection variants, scaled by max|plain|:
-f32 2e-4 (f32 sums in another order; cuDNN with TF32 off), bf16 2^-6 (c1,
-c2 and c3 rounded to bf16 at the same points from sums in another order:
-2 to 4 bf16 ulps at the largest output). The box rasterizer must equal its
-plain version exactly: 0 differing pixels. RoIAlign within 4e-6 of
-max|plain| in either feature dtype: both read the same taps with the same
-f32 weights (the sample coordinates are computed without fma contraction
-on both sides), and each output is a convex combination of 16 taps whose
-products and sums round in another order, at most about 16 f32 ulps of
-the largest value.
+f32 2e-4 (the kernel's split-TF32 products are within about 2^-21 of f32
+products, and its f32 sums run in another order; cuDNN with TF32 off),
+bf16 2^-6 (c1, c2 and c3 rounded to bf16 at the same points from sums in
+another order: 2 to 4 bf16 ulps at the largest output). The box
+rasterizer must equal its plain version exactly: 0 differing pixels.
+RoIAlign within 4e-6 of max|plain| in either feature dtype and at either
+width (16 B of channels a thread, or one channel a thread for features
+whose channels or address do not allow 16-B loads): both read the same
+taps with the same f32 weights (the sample coordinates are computed
+without fma contraction on both sides), and each output is a convex
+combination of 16 taps whose products and sums round in another order, at
+most about 16 f32 ulps of the largest value.
 """
 import ast
 from pathlib import Path
@@ -168,6 +171,35 @@ def test_roialign_kernel_matches_plain_on_gpu(shape, kw, dtype):
     assert RA.roialign.launches == launches + 1
     out = kw.get("output_size", 7)
     assert got.dtype == torch.float32 and got.shape == ref.shape == (b, r, out, out, c)
+    assert (got - ref).abs().max().item() <= ROI_TOL * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,c,offset,width", [
+    ("float32", 4, 0, 4),      # one 16-B group of f32 channels
+    ("bfloat16", 8, 0, 8),     # one 16-B group of bf16 channels
+    ("float32", 3, 0, 1),      # C not a multiple of the width
+    ("bfloat16", 3, 0, 1),
+    ("float32", 32, 1, 1),     # data pointer 4 B off 16-B alignment
+    ("bfloat16", 32, 2, 1),
+])
+def test_roialign_each_width_matches_plain_on_gpu(dtype, c, offset, width):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, h, w, r = 2, 37, 53, 67
+    gen = torch.Generator(device="cuda").manual_seed(c + offset)
+    n = b * h * w * c
+    buf = torch.rand(n + offset, generator=gen, device="cuda").to(getattr(torch, dtype))
+    feats = buf[offset:].view(b, h, w, c)
+    assert feats.is_contiguous() and feats.data_ptr() % 16 == 4 * (offset > 0)
+    rois = torch.from_numpy(detection_rois(1, b, r, size=2 * max(h, w))).cuda()
+    assert RA.channels_per_thread(feats) == width
+    launches = RA.roialign.launches
+    got = RA.roialign(feats, rois, spatial_scale=0.5)
+    ref = RA.roialign_plain(feats, rois, spatial_scale=0.5)
+    torch.cuda.synchronize()
+    assert RA.roialign.launches == launches + 1
+    assert got.shape == ref.shape == (b, r, 7, 7, c)
     assert (got - ref).abs().max().item() <= ROI_TOL * ref.abs().max().item()
 
 

@@ -101,3 +101,17 @@ def test_wrapper_rejects_other_devices():
     feats, rois = _inputs(2)
     with pytest.raises(ValueError):
         K.roialign(torch.from_numpy(feats).to("meta"), torch.from_numpy(rois).to("meta"))
+
+
+@pytest.mark.parametrize("dtype,c,offset,width", [
+    (torch.float32, 32, 0, 4), (torch.float32, 4, 0, 4), (torch.bfloat16, 32, 0, 8),
+    (torch.bfloat16, 8, 0, 8), (torch.float32, 3, 0, 1), (torch.bfloat16, 24, 0, 8),
+    (torch.bfloat16, 12, 0, 1), (torch.float32, 32, 1, 1), (torch.bfloat16, 32, 2, 1),
+])
+def test_channels_per_thread_picks_16_byte_loads_where_they_fit(dtype, c, offset, width):
+    """The kernel instantiation the wrapper launches: 16 B of channels a
+    thread where C splits into them and the data starts on 16 B, else one."""
+    buf = torch.zeros(2 * 5 * 7 * c + offset, dtype=dtype)
+    feats = buf[offset:].view(2, 5, 7, c)
+    assert feats.is_contiguous() and (feats.data_ptr() % 16 == 0) == (offset == 0)
+    assert K.channels_per_thread(feats) == width

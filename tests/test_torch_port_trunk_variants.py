@@ -123,8 +123,12 @@ def test_trunk_variant_rejects_an_unknown_variant():
 
 def _unfragment(frag, k):
     """Invert kernels/trunk.py:_fragments: -> HWIO-flattened B [k, 32]."""
-    kp = k + (-k % 16)
-    b = frag.reshape(kp // 16, 2, 8, 4, 2, 2, 2).permute(0, 5, 3, 6, 1, 4, 2).reshape(kp, 32)
+    if frag.dtype == torch.float32:  # m16n8k8: [step][pair][g][tg][tile][e], k = 8*step + 4*e + tg
+        kp = k + (-k % 8)
+        b = frag.reshape(kp // 8, 2, 8, 4, 2, 2).permute(0, 5, 3, 1, 4, 2).reshape(kp, 32)
+    else:  # m16n8k16: [step][pair][g][tg][tile][half][e], k = 16*step + 8*half + 2*tg + e
+        kp = k + (-k % 16)
+        b = frag.reshape(kp // 16, 2, 8, 4, 2, 2, 2).permute(0, 5, 3, 6, 1, 4, 2).reshape(kp, 32)
     assert not b[k:].any()
     return b[:k]
 
@@ -137,10 +141,10 @@ def test_prepared_layout_inverts_to_the_oihw_weights(dtype):
     weights, biases = K.prepare_weights(params[0::2], params[1::2], dt)
     assert biases.dtype == torch.float32 and biases.shape == (96,)
     assert torch.equal(biases, torch.cat([b.to(dt).float() for b in params[1::2]]))
-    sizes = (27 * 32, 288 * 32, 288 * 32) if dtype == "float32" else (32 * 32, 288 * 32, 288 * 32)
+    sizes = (32 * 32, 288 * 32, 288 * 32)  # c1's K = 27 padded to a whole k-step
     assert weights.dtype == dt and weights.shape == (sum(sizes),)
     for part, w, cin in zip(torch.split(weights, sizes), params[0::2], (3, 32, 32)):
-        b = part.reshape(9 * cin, 32) if dtype == "float32" else _unfragment(part, 9 * cin)
+        b = _unfragment(part, 9 * cin)
         assert torch.equal(b.reshape(3, 3, cin, 32).permute(3, 2, 0, 1), w.to(dt))
 
 
