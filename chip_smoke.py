@@ -21,11 +21,15 @@
    0 just before and read just after, and times each variant's plain
    version and its cuDNN prefix.
 3. Raster kernel phase (B2): seeded box scenes (data/boxes.py: 8 scenes of
-   max_bb 100 with 5-60 valid cars and trucks and the edge cases) at sizes
-   800, 148 and 157: the kernel must equal its plain version with 0
-   differing pixels; at 800 the kernel's device time (torch.profiler), its
-   time per call back to back and the plain version's (CUDA events) beside
-   the bound.
+   max_bb 100 with 5-60 valid cars and trucks and the edge cases), the
+   adversarial set (data/boxes.py:adversarial_boxes: thin rotated boxes on
+   the 0.1 m grid, near-horizontal edges, boxes off the map, point boxes,
+   whole-map boxes, odd rings, boxes beyond 2^60 px and non-finite ones)
+   and items of 500 boxes, at sizes 800, 148 and 157: the kernel must equal
+   its plain version with 0 differing pixels; on the seeded scenes at 800
+   the device time of both kernels the wrapper launches (torch.profiler),
+   its time per call back to back and the plain version's (CUDA events)
+   beside the bound.
 4. Roadmap serving phase: builds a full-width RoadMapBCEv2 (hidden 128,
    latent 64, 6x256x306 views) from a seed, writes it with
    export.save_task_ckpt, loads it back through cli.run_test.load_roadmap_model,
@@ -72,7 +76,20 @@
    output and the class posteriors on the same rois, and the detections
    are held against the same model with the plain kernels patched in. Then
    a BBFasterRCNN: one `predict` and one `host_val_metrics` at precision 32.
-8. Prints the card's name and power limit, one JSON line of kernel records,
+8. Training phase, precision 32, batches of 8 seeded uint8 scenes: the
+   trunk under autograd (kernel forward, plain backward) at
+   [8, 256, 1836, 3] against autograd through the plain trunk for x and the
+   six parameters; then 5 Adam steps of a full-width BasicAE (hidden 128,
+   latent 64) six-to-one pretraining and 3 steps of RoadMapBCEv2 over its
+   frozen encoder (loaded from the BasicAE checkpoint), each from one init
+   against the same steps with the plain kernels (same views and dropout
+   masks from one seeded generator): loss trajectories within stated
+   tolerances, B1 launched once a step (the backward launches none), the
+   kernel weights laid out once a step (once in all for the frozen
+   encoder), the frozen encoder's parameters bit-identical; ms per step,
+   scenes/s, device idle share (steps 1.. under torch.profiler) and peak
+   device memory.
+9. Prints the card's name and power limit, one JSON line of kernel records,
    and last the JSON line {"ok": true, "device": {...}}.
 
 TF32 is off for cuDNN and cuBLAS in every phase (printed at each).
@@ -86,7 +103,7 @@ import json
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from unittest import mock
 
@@ -98,7 +115,8 @@ from torch.profiler import ProfilerActivity, profile
 from driving_dirty_tpu_torch.cli.eval_boxes import load_detection_task
 from driving_dirty_tpu_torch.cli.run_test import load_roadmap_model
 from driving_dirty_tpu_torch.core import layers as L
-from driving_dirty_tpu_torch.data.boxes import box_scenes, detection_rois, detection_scenes
+from driving_dirty_tpu_torch.data.boxes import (adversarial_boxes, box_scenes, detection_rois,
+                                                detection_scenes)
 from driving_dirty_tpu_torch.export import load_task_ckpt, save_task_ckpt
 from driving_dirty_tpu_torch.kernels import build
 from driving_dirty_tpu_torch.kernels.raster import raster, raster_plain
@@ -106,6 +124,7 @@ from driving_dirty_tpu_torch.kernels.roialign import (channels_per_thread, roial
                                                       sample_coords)
 from driving_dirty_tpu_torch.kernels.trunk import (VARIANT_STAGES, out_hw, prepare_weights, trunk,
                                                    trunk_plain, trunk_variant, trunk_variant_plain)
+from driving_dirty_tpu_torch.models.basic_ae import BasicAE
 from driving_dirty_tpu_torch.models.faster_rcnn import BBFasterRCNN, FasterRCNNRoadMap
 from driving_dirty_tpu_torch.models.multitask import MultiTask
 from driving_dirty_tpu_torch.models.roadmap import RoadMapBCEv2
@@ -159,10 +178,11 @@ MASK_AGREEMENT = {32: 0.999, 16: 0.99}
 
 MAX_BB = 100                         # boxes per scene, padded (the dataset's max_bb)
 RASTER_SIZES = (800, 148, 157)       # the main path's size and two that fit no tile
-# f32 operations per pixel of a box's bounding rectangle: four edge tests of
-# 2 subtractions, 2 multiplications, 1 subtraction, 1 sign multiplication
-# and 1 comparison each, and the ANDs between them
-RASTER_OPS_PER_PIXEL_BOX = 30
+RASTER_KERNELS = ("raster_records_kernel", "raster_spans_kernel")  # what `raster` launches
+# f32 operations of an exact rasterizer: in each row a box meets, the four
+# edge tests (2 subtractions, 2 multiplications, 1 comparison) at the two
+# ends of its span; and one operation per output pixel
+RASTER_OPS_PER_ROW_BOX = 40
 VAL_BATCHES = 2                      # val_metrics batches of 8 per precision
 BOX_HPARAMS = dict(HPARAMS, spatial_geometry="reference")
 # Box occupancy (probabilities) from the kernel path vs the plain trunk,
@@ -201,6 +221,27 @@ DET_TOL = {32: 1e-4, 16: 2.0 ** -5}
 # other can swap ranks, and a swap changes a detection only at a cut-off or
 # between overlapping boxes of one class.
 DET_AGREEMENT = 0.99
+
+# Training phase: BasicAE six-to-one pretraining at the full width of
+# HPARAMS, then the roadmap_bce fine-tune over its frozen encoder, with
+# torch.optim.Adam (the update of optax.adam).
+AE_HPARAMS = dict(hidden_dim=HPARAMS["ae_hidden_dim"], latent_dim=HPARAMS["ae_latent_dim"],
+                  batch_size=BATCH)
+AE_STEPS, RM_STEPS = 5, 3
+LR = 1e-3
+# The trunk's gradients under autograd (kernel forward, plain backward)
+# against autograd through the plain trunk, for one cotangent, max |error| <=
+# GRAD_TOL * max|plain|: both run the same backward on the same inputs;
+# only cuDNN's reduction order (sums of up to 3.7M terms) can differ.
+GRAD_TOL = 1e-4
+# Losses of the kernel run against the plain-kernel run from one init, with
+# the same masked views and dropout masks: the first step's loss (no update
+# yet) differs only by the trunk's split-TF32 forward, a few 1e-6 of c3:
+# 1e-4, as the logits. Later steps: 5e-2, since Adam turns gradient noise
+# into sign-like +-lr steps on weights whose gradient is float noise
+# (tests/test_training_dynamics_parity.py measured up to 1.7% loss drift
+# over 30 steps between XLA and ATen and allows 5%).
+LOSS_TOL = (1e-4, 5e-2)
 
 
 def cuda_ms(fn, budget_ms: float = 400.0) -> float:
@@ -405,20 +446,25 @@ def device_us(event) -> float:
     return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
 
 
-def kernel_device_ms(fn, kernel: str, calls: int = 50) -> float:
-    """Mean device time of the kernels named `kernel` per call of fn(), from
-    torch.profiler over `calls` calls after a warm-up."""
+def kernel_device_ms(fn, kernels: tuple[str, ...], calls: int = 50) -> dict:
+    """Mean device time per call of fn() of each of `kernels` (every kernel
+    fn launches, by name), from torch.profiler over `calls` calls after a
+    warm-up -> {name: ms, ..., "total": ms}. Raises if one is missing."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(device_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key)
-    if not us:
-        raise RuntimeError(f"the profiler traced no {kernel} on the device")
-    return us / 1e3 / calls
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out = {}
+    for kernel in kernels:
+        us = sum(device_us(e) for e in events if kernel in e.key)
+        if not us:
+            raise RuntimeError(f"the profiler traced no {kernel} on the device")
+        out[kernel] = us / 1e3 / calls
+    out["total"] = sum(out.values())
+    return out
 
 
 def tf32_line(label: str) -> None:
@@ -427,56 +473,70 @@ def tf32_line(label: str) -> None:
 
 
 def raster_bound_ms(boxes, valid, size) -> tuple[float, str, int]:
-    """-> (bound ms, what binds, pixel-boxes). Bytes: the output written once,
+    """-> (bound ms, what binds, row-boxes). Bytes: the output written once,
     boxes and valid read once, over 3.35 TB/s. Operations: for each valid,
-    non-degenerate box, RASTER_OPS_PER_PIXEL_BOX f32 operations on each pixel
-    of its bounding rectangle clipped to the map, over 67 TFLOP/s."""
+    non-degenerate box, RASTER_OPS_PER_ROW_BOX f32 operations in each map
+    row of its bounding rectangle, and one per output pixel, over 67
+    TFLOP/s."""
     b, v = boxes.cpu().numpy(), valid.cpu().numpy()
     scale, offset = (np.float32(x) for x in raster_geometry(size))
     px = b[:, :, 0, [0, 1, 3, 2]] * scale + offset
     py = b[:, :, 1, [0, 1, 3, 2]] * scale + offset
     t = px * np.roll(py, -1, axis=-1) - np.roll(px, -1, axis=-1) * py
     ok = v & (np.abs(((t[..., 0] + t[..., 1]) + t[..., 2]) + t[..., 3]) > np.float32(1e-6))
-
-    def span(lo, hi):
-        return np.maximum(0, np.minimum(size - 1, np.floor(hi)) - np.maximum(0, np.ceil(lo)) + 1)
-
-    pixel_boxes = int((span(px.min(-1), px.max(-1)) * span(py.min(-1), py.max(-1)))[ok].sum())
+    rows = np.maximum(0, np.minimum(size - 1, np.floor(py.max(-1))) - np.maximum(0, np.ceil(py.min(-1))) + 1)
+    row_boxes = int(rows[ok].sum())
     nbytes = b.shape[0] * size * size * 4 + boxes.numel() * 4 + valid.numel()
-    t_ops = pixel_boxes * RASTER_OPS_PER_PIXEL_BOX / PEAK_OPS[torch.float32]
+    t_ops = (row_boxes * RASTER_OPS_PER_ROW_BOX + b.shape[0] * size * size) / PEAK_OPS[torch.float32]
     t_bytes = nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", pixel_boxes
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", row_boxes
+
+
+def raster_sets() -> dict:
+    """Box sets the rasterizer is held to: the seeded scenes (timed), the
+    adversarial set of data/boxes.py, and items of 500 boxes (about 290
+    valid: more than one 256-record staging pass of the span kernel)."""
+    many = [adversarial_boxes(SEED + i, 2, MAX_BB) for i in range(5)]
+    sets = {"scenes": box_scenes(SEED, BATCH, MAX_BB), "adversarial": adversarial_boxes(SEED, BATCH, MAX_BB),
+            "500 boxes": tuple(np.concatenate([m[i] for m in many], axis=1) for i in (0, 1))}
+    return {k: tuple(torch.from_numpy(a).cuda() for a in v) for k, v in sets.items()}
 
 
 def raster_phase() -> dict:
-    boxes, valid = (torch.from_numpy(a).cuda() for a in box_scenes(SEED, BATCH, MAX_BB))
+    sets = raster_sets()
+    boxes, valid = sets["scenes"]
     print(f"raster: {int(valid.sum())} valid boxes in {BATCH} scenes of max_bb {MAX_BB}", flush=True)
     diffs, max_err = {}, 0.0
-    for size in RASTER_SIZES:
-        got, ref = raster(boxes, valid, size), raster_plain(boxes, valid, size)
-        n = int((got != ref).sum())
-        max_err = max(max_err, (got - ref).abs().max().item())
-        print(f"raster [{BATCH},{MAX_BB},2,4] -> [{BATCH},{size},{size}]: {n} differing pixels "
-              f"({int(ref.sum())} set)", flush=True)
-        if n or tuple(got.shape) != (BATCH, size, size):
-            raise RuntimeError(f"raster kernel differs from plain at size {size}: {n} pixels")
-        diffs[size] = n
-    # The kernel runs for less time than its wrapper takes on the host, so
+    for name, (b, v) in sets.items():
+        for size in RASTER_SIZES:
+            got, ref = raster(b, v, size), raster_plain(b, v, size)
+            n = int((got != ref).sum())
+            max_err = max(max_err, (got - ref).abs().max().item())
+            print(f"raster {name} {list(b.shape)} -> [{b.shape[0]},{size},{size}]: {n} differing pixels "
+                  f"({int(ref.sum())} set)", flush=True)
+            if n or tuple(got.shape) != (b.shape[0], size, size):
+                raise RuntimeError(f"raster kernel differs from plain on {name} at size {size}: {n} pixels")
+            diffs[f"{name} {size}"] = n
+    # The kernels run for less time than the wrapper takes on the host, so
     # events around back-to-back calls time the host (call_ms); the
-    # kernel's own time is its device time in a profiled run.
-    ms = kernel_device_ms(lambda: raster(boxes, valid, 800), "raster_kernel")
+    # kernels' own time is their device time in a profiled run, summed over
+    # both kernels the wrapper launches.
+    device = kernel_device_ms(lambda: raster(boxes, valid, 800), RASTER_KERNELS)
+    ms = device["total"]
     call_ms = cuda_ms(lambda: raster(boxes, valid, 800))
     plain_ms = cuda_ms(lambda: raster_plain(boxes, valid, 800))
-    bound_ms, bound_by, pixel_boxes = raster_bound_ms(boxes, valid, 800)
-    print(f"raster [{BATCH},{MAX_BB},2,4] -> [{BATCH},800,800]: kernel {ms:.4f} ms on the device, "
-          f"{call_ms:.4f} ms per call back to back, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}; {pixel_boxes} pixel-boxes), roofline share {bound_ms / ms:.3f}", flush=True)
+    bound_ms, bound_by, row_boxes = raster_bound_ms(boxes, valid, 800)
+    print(f"raster [{BATCH},{MAX_BB},2,4] -> [{BATCH},800,800]: kernels {ms:.4f} ms on the device ("
+          + ", ".join(f"{k} {device[k]:.4f}" for k in RASTER_KERNELS)
+          + f"), {call_ms:.4f} ms per call back to back, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; {row_boxes} row-boxes), roofline share {bound_ms / ms:.3f}", flush=True)
     return {"name": "raster", "route": "cuda", "source": "driving_dirty_tpu_torch/csrc/raster.cu",
             "replaces": "driving_dirty_tpu/pallas/raster.py:76 (boxes_to_binary_map_pallas)",
+            "design": "exact per-row spans: records kernel + cull/span/float4-fill kernel",
             "shape": [BATCH, MAX_BB, 2, 4], "size": 800, "dtype": "float32",
             "max_abs_err": max_err, "differing_pixels": diffs, "valid_boxes": int(valid.sum()),
-            "pixel_boxes": pixel_boxes, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "library_ms": None,
+            "row_boxes": row_boxes, "ms": ms, "kernel_ms": {k: device[k] for k in RASTER_KERNELS},
+            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by, "roofline_share": bound_ms / ms}
 
 
@@ -495,24 +555,28 @@ def serve(model, requests) -> tuple[list, float]:
     return outs, time.perf_counter() - t0
 
 
-def window_report(prof, seconds: float, label: str, smi: str) -> dict:
+def window_report(prof, seconds: float, label: str, smi: str, n: int = REQUESTS,
+                  unit: str = "request") -> dict:
     """Throughput, device busy, idle share and the top device ops of one
-    profiled window of REQUESTS requests."""
+    profiled window of n requests (or training steps) of BATCH scenes."""
+    # user annotations (e.g. Optimizer.step) are mirrored on the device
+    # timeline as ranges over kernels counted already: left out
     ops = sorted(((e.key, e.count, device_us(e)) for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA), key=lambda t: -t[2])
+                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)),
+                 key=lambda t: -t[2])
     if not ops:
         raise RuntimeError("the profiler traced no device time")
-    wall_ms = 1e3 * seconds / REQUESTS
-    busy_ms = sum(us for _, _, us in ops) / 1e3 / REQUESTS
-    sps = REQUESTS * BATCH / seconds
-    print(f"{label} ({smi}): {sps:.1f} scenes/s over {REQUESTS} requests of {BATCH} under "
-          f"torch.profiler; {wall_ms:.3f} ms/request wall, {busy_ms:.3f} ms device-busy, "
+    wall_ms = 1e3 * seconds / n
+    busy_ms = sum(us for _, _, us in ops) / 1e3 / n
+    sps = n * BATCH / seconds
+    print(f"{label} ({smi}): {sps:.1f} scenes/s over {n} {unit}s of {BATCH} under "
+          f"torch.profiler; {wall_ms:.3f} ms/{unit} wall, {busy_ms:.3f} ms device-busy, "
           f"idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     for name, count, us in ops[:10]:
-        print(f"  {us / 1e3 / REQUESTS:9.3f} ms/request  x{count // REQUESTS:<3d} {name[:90]}")
+        print(f"  {us / 1e3 / n:9.3f} ms/{unit}  x{count // n:<3d} {name[:90]}")
     return {"scenes_per_s": sps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms,
-            "top_ops": [[n[:60], us / 1e3 / REQUESTS] for n, _, us in ops[:5]]}
+            "top_ops": [[name[:60], us / 1e3 / n] for name, _, us in ops[:5]]}
 
 
 def request_images(rng, n):
@@ -771,7 +835,7 @@ def roialign_phase(gen) -> list[dict]:
         feats = torch.rand(ROI_FEATS, generator=gen, device="cuda").to(dtype)
         name = f"roialign {str(dtype)[6:]} {list(ROI_FEATS)} R={ROIS} ({roialign_design(feats)})"
         rec = hold(name, roialign(feats, rois, **ROI_KW), roialign_plain(feats, rois, **ROI_KW), ROI_TOL)
-        ms = kernel_device_ms(lambda: roialign(feats, rois, **ROI_KW), "roialign_kernel")
+        ms = kernel_device_ms(lambda: roialign(feats, rois, **ROI_KW), ("roialign_kernel",))["total"]
         call_ms = cuda_ms(lambda: roialign(feats, rois, **ROI_KW))
         plain_ms = cuda_ms(lambda: roialign_plain(feats, rois, **ROI_KW))
         nchw, grid = roialign_library_args(feats, rois)
@@ -949,6 +1013,145 @@ def detection_phase(tmp: Path, smi: str) -> dict:
     return out
 
 
+def trunk_grad_phase(gen) -> dict:
+    """The trunk under autograd at [8, 256, 1836, 3] f32: the kernel forward
+    with the plain backward (TrunkFunction) against autograd through the
+    plain trunk, for x and all six parameters and one seeded cotangent;
+    then both forward + backward timed."""
+    x, params = trunk_args(gen, torch.float32, (BATCH, *PANO, 3))
+    g = torch.randn((BATCH, *out_hw(*PANO), 32), generator=gen, device="cuda")
+    a = [t.clone().requires_grad_() for t in (x, *params)]
+    b = [t.clone().requires_grad_() for t in (x, *params)]
+    trunk.launches = 0
+    trunk(*a).backward(g)
+    torch.cuda.synchronize()
+    if trunk.launches != 1:
+        raise RuntimeError(f"trunk forward + backward launched the kernel {trunk.launches} times, expected 1")
+    trunk_plain(*b).backward(g)
+    errs = {}
+    for name, s, t in zip(("x", "w1", "b1", "w2", "b2", "w3", "b3"), a, b):
+        errs[name] = hold(f"trunk gradient {name} {list(t.shape)}", s.grad, t.grad, GRAD_TOL)["max_abs_err"]
+    ms = cuda_ms(lambda: trunk(*a).backward(g))
+    plain_ms = cuda_ms(lambda: trunk_plain(*b).backward(g))
+    print(f"trunk forward + backward f32 {list(x.shape)}: kernel forward + plain backward {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms", flush=True)
+    return {"grad_max_abs_err": errs, "fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain_ms}
+
+
+def train_run(model, init, batches, steps: int, label: str, smi: str, plain: bool) -> dict:
+    """`steps` Adam steps of model.loss from the weights `init` on
+    batches[step % len(batches)], the masked views and dropout drawn from
+    one seeded generator; step 0 is a warm-up, steps 1.. run under
+    torch.profiler. With plain=True the plain kernels are patched in.
+    -> losses, per-step ms, launches and kernel-weight builds, the window
+    report and the peak device memory."""
+    model.load_state_dict(init)
+    opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=LR,
+                           betas=(0.9, 0.999), eps=1e-8)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    out = {"loss": [], "step_ms": [], "trunk_launches": [], "weight_builds": []}
+
+    def step(i):
+        launches, builds = trunk.launches, prepare_weights.calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss, _ = model.loss(batches[i % len(batches)], train=True, generator=gen)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["loss"].append(loss.item())
+        out["step_ms"].append(1e3 * dt)
+        out["trunk_launches"].append(trunk.launches - launches)
+        out["weight_builds"].append(prepare_weights.calls - builds)
+        return dt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_kernels() if plain else nullcontext():
+        reset_launches()
+        prepare_weights.calls = 0
+        step(0)  # warm-up: allocator, cuDNN autotuning, Adam state
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            window = sum(step(i) for i in range(1, steps))
+        counts = expect_launches(f"{label} training", 0 if plain else steps, 0)
+    out["launches"] = counts
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["window"] = window_report(prof, window, f"{label}{' (plain kernels)' if plain else ''}", smi,
+                                  n=steps - 1, unit="step")
+    if not all(np.isfinite(out["loss"])):
+        raise RuntimeError(f"{label}: non-finite loss {out['loss']}")
+    print(f"{label}{' plain' if plain else ''}: losses {out['loss']}, ms/step {out['step_ms']}, "
+          f"trunk launches {out['trunk_launches']}, kernel-weight builds {out['weight_builds']}, "
+          f"peak memory {out['peak_memory_gb']:.2f} GB", flush=True)
+    return out
+
+
+def hold_trajectory(label: str, got: list, ref: list) -> list:
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    for step, err in enumerate(errs):
+        tol = LOSS_TOL[0] if step == 0 else LOSS_TOL[1]
+        if not err <= tol:
+            raise RuntimeError(f"{label}: step {step} loss {got[step]} vs plain {ref[step]} "
+                               f"(relative {err} > {tol})")
+    print(f"{label}: loss trajectory within {LOSS_TOL} of the plain kernels' (relative {errs})", flush=True)
+    return errs
+
+
+def training_phase(tmp: Path, smi: str) -> dict:
+    """BasicAE six-to-one pretraining (AE_STEPS Adam steps) at the full
+    width of HPARAMS, then RM_STEPS steps of the roadmap_bce fine-tune over
+    its frozen encoder, each against the same steps with the plain kernels;
+    batches of 8 seeded uint8 scenes, precision 32."""
+    tf32_line("training")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    out = {"trunk_grad": trunk_grad_phase(gen)}
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(SEED + 6)
+    images = [torch.from_numpy(r).cuda() for r in request_images(rng, 2)]
+
+    model = BasicAE(AE_HPARAMS, device="cuda", generator=gen)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    ae = train_run(model, init, [{"images": x} for x in images], AE_STEPS, "basic_ae", smi, plain=False)
+    if ae["trunk_launches"] != [1] * AE_STEPS or ae["weight_builds"] != [1] * AE_STEPS:
+        raise RuntimeError(f"basic_ae: trunk launches {ae['trunk_launches']} and kernel-weight builds "
+                           f"{ae['weight_builds']} per step, expected 1 and 1 (Adam writes the weights)")
+    ckpt = tmp / "basic_ae.ckpt"
+    save_task_ckpt(ckpt, model)
+    ae_plain = train_run(model, init, [{"images": x} for x in images], AE_STEPS, "basic_ae", smi, plain=True)
+    ae["loss_rel_err"] = hold_trajectory("basic_ae", ae["loss"], ae_plain["loss"])
+    out["basic_ae"], out["basic_ae_plain"] = ae, ae_plain
+    del model, init
+    torch.cuda.empty_cache()
+
+    model = RoadMapBCEv2(dict(HPARAMS, pretrained_path=str(ckpt), unfreeze_epoch_no=1), device="cuda",
+                         generator=gen)
+    if model.apply_freeze_mask(0) is None:
+        raise RuntimeError("roadmap_bce: freeze_mask(0) froze nothing with unfreeze_epoch_no 1")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    roads = [(rng.rand(BATCH, 800, 800) > 0.5).astype(np.float32) for _ in images]
+    batches = [{"images": x, "road": torch.from_numpy(r).cuda()} for x, r in zip(images, roads)]
+    rm = train_run(model, init, batches, RM_STEPS, "roadmap_bce frozen encoder", smi, plain=False)
+    state = model.state_dict()
+    moved = [k for k, v in init.items() if k.startswith("encoder.") and "running" not in k
+             and not torch.equal(state[k], v)]
+    if moved or torch.equal(state["fc1.weight"], init["fc1.weight"]):
+        raise RuntimeError(f"roadmap_bce frozen encoder: encoder parameters moved {moved}, "
+                           f"or the head did not")
+    if rm["trunk_launches"] != [1] * RM_STEPS or rm["weight_builds"] != [1] + [0] * (RM_STEPS - 1):
+        raise RuntimeError(f"roadmap_bce: trunk launches {rm['trunk_launches']} and kernel-weight builds "
+                           f"{rm['weight_builds']} per step, expected 1 each and one build (frozen weights)")
+    print("roadmap_bce frozen encoder: encoder parameters bit-identical after the steps, head moved",
+          flush=True)
+    rm_plain = train_run(model, init, batches, RM_STEPS, "roadmap_bce frozen encoder", smi, plain=True)
+    rm["loss_rel_err"] = hold_trajectory("roadmap_bce frozen encoder", rm["loss"], rm_plain["loss"])
+    out["roadmap_bce"], out["roadmap_bce_plain"] = rm, rm_plain
+    del model, init, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -979,6 +1182,7 @@ def main() -> int:
         served = serving_phase(ckpt, smi)
         boxes = box_phase(Path(tmp), smi)
         detection = detection_phase(Path(tmp), smi)
+        training = training_phase(Path(tmp), smi)
 
     for r in records:
         precision = 32 if r["dtype"] == "float32" else 16
@@ -992,7 +1196,8 @@ def main() -> int:
         precision = 32 if r["dtype"] == "float32" else 16
         r["launches"] = detection[f"faster_rcnn_rm_{precision}"]["predict_launches"]["roialign"]
     records += roialign_recs + variant_recs
-    print(json.dumps({"serving": served, "box_family": boxes, "detection": detection}))
+    print(json.dumps({"serving": served, "box_family": boxes, "detection": detection,
+                      "training": training}))
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

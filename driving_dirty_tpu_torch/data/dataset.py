@@ -1,5 +1,6 @@
-"""Labeled scene reader for the 6-camera driving dataset
-(driving_dirty_tpu/data/dataset.py). PIL and pandas are imported inside the
+"""Scene readers for the 6-camera driving dataset
+(driving_dirty_tpu/data/dataset.py): unlabeled scenes 0-105 for the
+pretext task, labeled scenes 106-133. PIL and pandas are imported inside the
 functions that use them, so the package imports where they are absent.
 
 Directory layout:
@@ -33,6 +34,7 @@ IMAGE_NAMES = [
 IMAGE_H, IMAGE_W = 256, 306
 MAX_BOXES_DEFAULT = 100
 
+UNLABELED_SCENES = np.arange(106)
 LABELED_SCENES = np.arange(106, 134)
 
 
@@ -60,6 +62,43 @@ def scene_split(scene_index, train_frac=0.8, seed=None, shuffle=True):
         rng.shuffle(idx)
     n_train = round(train_frac * len(idx))
     return idx[:n_train], idx[n_train:]
+
+
+@dataclass
+class UnlabeledDataset:
+    """Unlabeled scenes, no annotation. first_dim='sample' -> item [6, H, W, 3];
+    first_dim='image' -> ([H, W, 3], camera index), one item a camera view.
+    Index arithmetic as the reference's data_helper.py:57-81."""
+
+    image_folder: str
+    scene_index: np.ndarray
+    first_dim: str = "sample"
+    samples_per_scene: int = NUM_SAMPLE_PER_SCENE
+    raw_uint8: bool = False  # camera images as uint8 (normalize on device)
+
+    def __post_init__(self):
+        if self.first_dim not in ("sample", "image"):
+            raise ValueError(f"first_dim must be 'sample' or 'image', got {self.first_dim!r}")
+        self.scene_index = np.asarray(self.scene_index)
+
+    def __len__(self):
+        n = self.scene_index.size * self.samples_per_scene
+        return n * NUM_IMAGE_PER_SAMPLE if self.first_dim == "image" else n
+
+    def _sample_path(self, scene_id, sample_id):
+        return os.path.join(self.image_folder, f"scene_{scene_id}", f"sample_{sample_id}")
+
+    def __getitem__(self, index):
+        sps = self.samples_per_scene
+        if self.first_dim == "sample":
+            path = self._sample_path(self.scene_index[index // sps], index % sps)
+            return _load_sample_images(path, self.raw_uint8)
+        per_scene = sps * NUM_IMAGE_PER_SAMPLE
+        scene_id = self.scene_index[index // per_scene]
+        sample_id = (index % per_scene) // NUM_IMAGE_PER_SAMPLE
+        cam = index % NUM_IMAGE_PER_SAMPLE
+        path = self._sample_path(scene_id, sample_id)
+        return _load_image(os.path.join(path, IMAGE_NAMES[cam]), self.raw_uint8), cam
 
 
 @dataclass

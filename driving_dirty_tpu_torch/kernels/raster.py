@@ -9,13 +9,16 @@ takes any size (scale size * 10 / 800, offset size / 2, as ops/maps.py) and
 any batch in one launch.
 
 What bounds it on the H100: writing the output, B * size^2 * 4 bytes
-(20.5 MB, 6.1 us for B = 8 at 800); the edge tests, ~30 f32 operations per
-pixel of each box's bounding rectangle, are a few percent of that at
-realistic box counts. What the design does about it: each block stages the
-boxes that meet its 8-row tile in shared memory and writes its rows once,
-coalesced; no [N, size, size] stack ever reaches device memory (the csrc
-header has the details, including why it is bit-exact to the plain
-version).
+(20.5 MB, 6.1 us for B = 8 at 800). What the design does about it: for a
+fixed row each edge test is monotone in the column, so a box covers one
+interval of columns per row. A first kernel runs the per-box prologue once
+per (item, box) into a record array (`dd_raster_forward`'s scratch); a
+second finds each (row, box) interval exactly, with the plain version's
+rounded predicate, ORs it into a per-row bitmask in shared memory, and
+writes each row once as 16-B stores. The work per pixel does not grow with
+the number of boxes, and no [N, size, size] stack reaches device memory
+(the csrc header has the details, including why it is bit-exact to the
+plain version and what it does for boxes too large for that argument).
 
 `raster` launches the kernel on a CUDA tensor and uses `raster_plain`
 (ops/maps.py:boxes_to_binary_map) only for a tensor on the CPU.
@@ -39,7 +42,7 @@ __all__ = ["raster", "raster_plain"]
 def _entry():
     """The C entry of the raster library, built and typed on first use."""
     fn = load_library("raster").dd_raster_forward
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -71,8 +74,9 @@ def raster(boxes, valid, size: int = MAP_SIZE):
     """[B, N, 2, 4] float32 meter boxes (rows x/y, corners fl, fr, bl, br)
     + [B, N] bool -> [B, size, size] float32 {0,1} maps.
 
-    On a CUDA tensor this launches the kernel on the current stream (and
-    adds one to `raster.launches`); on a CPU tensor it is `raster_plain`."""
+    On a CUDA tensor this launches the two kernels of csrc/raster.cu on the
+    current stream (and adds one to `raster.launches`); on a CPU tensor it
+    is `raster_plain`."""
     if boxes.device.type == "cpu":
         return raster_plain(boxes, valid, size)
     if boxes.device.type != "cuda":
@@ -82,10 +86,15 @@ def raster(boxes, valid, size: int = MAP_SIZE):
     out = torch.empty((b, size, size), dtype=torch.float32, device=boxes.device)
     if b == 0:
         return out
+    # scratch, one allocation: a 64-B record per (item, box), then two int32
+    # counts per item
+    scratch = torch.empty(b * n * 16 + 2 * b, dtype=torch.float32, device=boxes.device)
+    records = scratch.data_ptr()
     scale, offset = (np.float32(v) for v in raster_geometry(size))
     with torch.cuda.device(boxes.device):
-        err = _entry()(boxes.data_ptr(), valid.data_ptr(), out.data_ptr(), b, n, size,
-                       scale, offset, torch.cuda.current_stream(boxes.device).cuda_stream)
+        err = _entry()(boxes.data_ptr(), valid.data_ptr(), records, records + b * n * 64,
+                       out.data_ptr(), b, n, size, scale, offset,
+                       torch.cuda.current_stream(boxes.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed with CUDA error {err}")
     raster.launches += 1

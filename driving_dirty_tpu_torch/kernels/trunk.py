@@ -29,8 +29,12 @@ built once per (weight tensors, dtype) and cached (`kernel_weights`).
 
 `trunk` and `trunk_variant` launch the kernel on a CUDA tensor and use the
 plain PyTorch versions (`trunk_plain`, `trunk_variant_plain`) only for a
-tensor on the CPU. There is no autograd yet: the wrappers raise if asked for
-a gradient.
+tensor on the CPU. `trunk` is differentiable through `TrunkFunction`: the
+kernel computes the forward and saves only its inputs; the backward
+recomputes `trunk_plain` from them and differentiates it (cuDNN on the
+card), as pallas/trunk.py's custom VJP runs the backward through
+jax.vjp(xla_trunk). The JAX package has no Pallas backward for the trunk,
+so neither has the port. `trunk_variant` is a probe and takes no gradient.
 """
 from __future__ import annotations
 
@@ -207,8 +211,6 @@ def _check(x, ws, bs):
             raise ValueError(f"trunk weights on {t.device}, input on {x.device}")
         if not t.is_floating_point():
             raise TypeError(f"trunk weights must be floating point, got {t.dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *ws, *bs)):
-        raise NotImplementedError("the trunk kernel has no backward yet; call it under torch.no_grad()")
 
 
 def _launch(x, params, stages):
@@ -232,18 +234,48 @@ def _launch(x, params, stages):
     return out
 
 
+class TrunkFunction(torch.autograd.Function):
+    """The trunk under autograd: TrunkFunction.apply(forward, x, w1, b1, w2,
+    b2, w3, b3). `forward` computes the output (`trunk` passes the kernel's
+    launch; a CPU test may pass `trunk_plain`); only the seven inputs are
+    saved. The backward recomputes `trunk_plain` from them under
+    enable_grad and differentiates it with torch.autograd.grad, for the
+    inputs that need a gradient. That recompute is also the training
+    step's remat of the encoder: c1 and c2 exist only inside the backward."""
+
+    @staticmethod
+    def forward(ctx, forward, x, w1, b1, w2, b2, w3, b3):
+        ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3)
+        return forward(x, w1, b1, w2, b2, w3, b3)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(trunk_plain(*inputs), wanted, grad))
+        return (None, *(next(grads) if need else None for need in needs))
+
+
+def _trunk_kernel(x, w1, b1, w2, b2, w3, b3):
+    out = _launch(x, (w1, b1, w2, b2, w3, b3), VARIANT_STAGES["full"])
+    if out.numel():
+        trunk.launches += 1
+    return out
+
+
 def trunk(x, w1, b1, w2, b2, w3, b3):
     """c1 -> c2 -> c3 trunk. [b, H, W, 3] -> [b, (H+1)//2, (W+1)//2, 32] in x's
     dtype (float32 or bfloat16); conv weights OIHW, biases [32].
 
     On a CUDA tensor this launches the kernel on the current stream (and adds
-    one to `trunk.launches`); on a CPU tensor it is `trunk_plain`."""
+    one to `trunk.launches`), through `TrunkFunction` so that gradients flow
+    (the backward launches no kernel); on a CPU tensor it is `trunk_plain`,
+    under ordinary autograd."""
     if x.device.type == "cpu":
         return trunk_plain(x, w1, b1, w2, b2, w3, b3)
-    out = _launch(x, (w1, b1, w2, b2, w3, b3), VARIANT_STAGES["full"])
-    if out.numel():
-        trunk.launches += 1
-    return out
+    return TrunkFunction.apply(_trunk_kernel, x, w1, b1, w2, b2, w3, b3)
 
 
 trunk.launches = 0
@@ -255,10 +287,13 @@ def trunk_variant(x, w1, b1, w2, b2, w3, b3, *, variant: str):
     `trunk` launches.
 
     On a CUDA tensor this launches the kernel (and adds one to
-    `trunk_variant.launches`); on a CPU tensor it is `trunk_variant_plain`."""
+    `trunk_variant.launches`); it has no backward and raises for inputs that
+    need a gradient. On a CPU tensor it is `trunk_variant_plain`."""
     stages = _stages(variant)
     if x.device.type == "cpu":
         return trunk_variant_plain(x, w1, b1, w2, b2, w3, b3, variant=variant)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2, w3, b3)):
+        raise NotImplementedError("trunk_variant has no backward; call it under torch.no_grad()")
     out = _launch(x, (w1, b1, w2, b2, w3, b3), stages)
     if out.numel():
         trunk_variant.launches += 1

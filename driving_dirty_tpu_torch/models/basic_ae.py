@@ -1,16 +1,46 @@
-"""BasicAE hparams and the Encoder they describe
-(driving_dirty_tpu/models/basic_ae.py:39-57).
+"""BasicAE: the six-to-one infill pretext task
+(driving_dirty_tpu/models/basic_ae.py).
 
-The six-to-one pretext forward, the Decoder and the loss come with the
-training slice; downstream models need only the encoder.
+Stitch the six camera views into a 256 x 1836 panorama, black out one
+306-wide view column, and reconstruct it through Encoder -> latent ->
+Decoder, with the MSE in f32 as the loss. The never-mask-position-5 quirk is
+kept; `mask_all_six` masks any position. The constructor's fallbacks
+(hidden 128, latent 128) are the JAX package's.
+
+The masked view and the DenseBlocks' dropout come from the `generator`
+given to `forward` / `loss` (or an explicit `view`), so two runs fed the
+same generator state draw the same. The encoder's conv trunk is kernel B1
+on the card; under autograd its backward recomputes the plain trunk, which
+is also the step's remat of the encoder (the JAX package wraps the encoder
+in jax.checkpoint). Downstream models take only the encoder
+(`build_encoder`, models/pretrained.py).
 """
 from __future__ import annotations
 
-from driving_dirty_tpu_torch.nn.autoencoder import Encoder
+import os
+
+import torch
+from torch import nn
+
+from driving_dirty_tpu_torch.core.device import resolve_device
+from driving_dirty_tpu_torch.data.dataset import (
+    NUM_SAMPLE_PER_SCENE,
+    UNLABELED_SCENES,
+    UnlabeledDataset,
+    scene_split,
+)
+from driving_dirty_tpu_torch.data.pipeline import Loader
+from driving_dirty_tpu_torch.models.precision import compute_dtype
+from driving_dirty_tpu_torch.nn.autoencoder import Decoder, Encoder
+from driving_dirty_tpu_torch.ops.stitch import normalize_images, six_to_one_task
 from driving_dirty_tpu_torch.train.task import Task, hp
 
 
-class BasicAE(Task):
+class AEConfig(Task):
+    """BasicAE's hparams and the Encoder they describe, without weights:
+    what a downstream model reads from a pretrained checkpoint
+    (models/pretrained.py)."""
+
     name = "basic_ae"
 
     def __init__(self, hparams=None):
@@ -24,8 +54,83 @@ class BasicAE(Task):
         self.output_height = hp(h, "output_height", 256)
         self.batch_size = hp(h, "batch_size", 16)
         self.in_channels = hp(h, "in_channels", 3)
+        self.mask_all_six = hp(h, "mask_all_six", False)
 
     def build_encoder(self, *, dense: bool = True, device=None, generator=None) -> Encoder:
         return Encoder(self.hidden_dim, self.latent_dim, self.in_channels,
                        self.input_height, self.input_width, dense=dense,
                        device=device, generator=generator)
+
+
+class BasicAE(AEConfig, nn.Module):
+    """The trainable pretext model: encoder and decoder on `device`
+    (default cuda), initialized from `generator`."""
+
+    def __init__(self, hparams=None, *, device=None, generator=None):
+        nn.Module.__init__(self)
+        AEConfig.__init__(self, hparams)
+        kw = dict(device=resolve_device(device), generator=generator)
+        self.encoder = self.build_encoder(**kw)
+        self.decoder = Decoder(self.hidden_dim, self.latent_dim, self.in_channels,
+                               self.output_height, self.output_width, **kw)
+
+    # --- model -----------------------------------------------------------
+    def forward(self, images, view=None, generator=None):
+        """[b, 6, H, W, C] views (uint8 or float) -> (y_hat, y), both
+        [b, H, W, C] in the compute dtype: the reconstruction and the
+        blacked-out column. `view` as six_to_one_task takes it; None draws
+        it from `generator`, which then also drives the dropout."""
+        dtype = compute_dtype(hp(self.hparams, "precision", 32))
+        x_masked, y = six_to_one_task(images, view, generator=generator,
+                                      num_maskable=6 if self.mask_all_six else 5)
+        z = self.encoder(normalize_images(x_masked, dtype), generator=generator)
+        return self.decoder(z, generator), normalize_images(y, dtype)
+
+    def loss(self, batch, *, train: bool, view=None, generator=None):
+        """-> (MSE of the reconstruction in f32, {}); the mode follows `train`
+        (BatchNorm batch statistics and dropout when training)."""
+        self.train(train)
+        images = batch["images"] if isinstance(batch, dict) else batch
+        y_hat, y = self(images, view, generator)
+        return torch.mean((y.float() - y_hat.float()) ** 2), {}
+
+    # --- data ------------------------------------------------------------
+    def _datasets(self):
+        h = self.hparams
+        if hp(h, "cache_dir", None):
+            raise NotImplementedError("the decode-once sample cache (cache_dir) is not ported yet")
+        link = hp(h, "link", None)
+        sps = hp(h, "samples_per_scene", NUM_SAMPLE_PER_SCENE)
+        n_scenes = hp(h, "num_unlabeled_scenes", len(UNLABELED_SCENES))
+        train_idx, val_idx = scene_split(UNLABELED_SCENES[:n_scenes], seed=hp(h, "seed", 20200505))
+
+        def mk(idx):
+            return UnlabeledDataset(link, idx, "sample", samples_per_scene=sps,
+                                    raw_uint8=bool(hp(h, "uint8_pipeline", True)))
+
+        return mk(train_idx), mk(val_idx)
+
+    def _num_workers(self):
+        # the reference hardcodes 4; this scales with the host, capped
+        return hp(self.hparams, "num_workers", None) or min(48, 4 * (os.cpu_count() or 4))
+
+    def train_loader(self):
+        tr, _ = self._datasets()
+        return Loader(tr, self.batch_size, shuffle=True,
+                      num_workers=self._num_workers(), drop_last=True)
+
+    def val_loader(self):
+        _, va = self._datasets()
+        return Loader(va, self.batch_size, shuffle=False, num_workers=self._num_workers())
+
+    # --- logging ---------------------------------------------------------
+    @torch.no_grad()
+    def log_images(self, batch, step_name: str, view=None, generator=None):
+        """The first scene's reconstruction (clipped to [0, 1]) and target,
+        in eval mode: {"<step_name>_predicted_images", "<step_name>_target_images"},
+        [H, W, C] each."""
+        self.eval()
+        images = batch["images"] if isinstance(batch, dict) else batch
+        y_hat, y = self(images[:1], view, generator)
+        return {f"{step_name}_predicted_images": y_hat[0].clamp(0, 1),
+                f"{step_name}_target_images": y[0]}

@@ -10,20 +10,20 @@ from __future__ import annotations
 
 from driving_dirty_tpu_torch.checkpoints import io as ckpt_io
 from driving_dirty_tpu_torch.checkpoints.convert import load_jax_weights
-from driving_dirty_tpu_torch.models.basic_ae import BasicAE
+from driving_dirty_tpu_torch.models.basic_ae import AEConfig
 from driving_dirty_tpu_torch.train.task import hp
 
 
 def load_pretrained_ae(hparams):
-    """-> (BasicAE, the encoder's JAX (params, state) pytrees or None). The
-    weights are None when no checkpoint is given; init_backbone then
-    initializes fresh."""
+    """-> (AEConfig: the BasicAE dims, no weights; the encoder's JAX
+    (params, state) pytrees or None). The weights are None when no
+    checkpoint is given; init_backbone then initializes fresh."""
     path = hp(hparams, "pretrained_path", None)
     if path:
         blob = ckpt_io.load(path)
         state = blob.get("state") or {}
-        return BasicAE(blob["hparams"]), (blob["params"]["encoder"], state.get("encoder"))
-    ae = BasicAE(
+        return AEConfig(blob["hparams"]), (blob["params"]["encoder"], state.get("encoder"))
+    ae = AEConfig(
         dict(
             hidden_dim=hp(hparams, "ae_hidden_dim", 128),
             latent_dim=hp(hparams, "ae_latent_dim", 64),

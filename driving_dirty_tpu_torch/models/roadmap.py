@@ -8,7 +8,11 @@
                the sigmoid output.
 
 Images are [b, 6, H, W, 3] NHWC (uint8 or float), masks [b, 800, 800].
-Freezing, the LR schedule and image logging come with training.
+`loss(batch, train=True, generator=...)` is the training loss, the encoder's
+dropout drawn from `generator`. `freeze_mask` / `apply_freeze_mask` freeze
+the pretrained encoder before `unfreeze_epoch_no` (30 for roadmap_mse and
+roadmap_bce_v1, 0 for roadmap_bce unless the hparam says otherwise). The
+LR schedule and image logging come with the trainer.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ MAP_PIXELS = 800 * 800
 
 class RoadMapBase(Task, nn.Module):
     name = "roadmap_base"
+    unfreeze_default = 30  # hard-coded in mse / bce-v1 (roadmap_pretrain_ae.py:131)
 
     def __init__(self, hparams=None, *, device=None, generator=None):
         nn.Module.__init__(self)
@@ -39,14 +44,17 @@ class RoadMapBase(Task, nn.Module):
         self.latent_dim = self.ae.latent_dim
         self.encoder = init_backbone(self.ae, ae_weights, device=device, generator=generator)
         self.fc1 = L.Linear(self.latent_dim, MAP_PIXELS, device=device, generator=generator)
+        ue = hp(h, "unfreeze_epoch_no", None)
+        self.unfreeze_epoch_no = self.unfreeze_default if ue is None else ue
 
-    def forward(self, images):
+    def forward(self, images, generator=None):
         """[b, 6, H, W, C] -> (logits [b, 800, 800] f32, probs).
 
         Stitching runs before the /255 (it only moves pixels), so the copy
-        moves uint8 bytes."""
+        moves uint8 bytes. In training mode the encoder's dropout draws from
+        `generator`."""
         x = normalize_images(wide_stitch(images), self.compute_dtype)
-        z = self.encoder(x)
+        z = self.encoder(x, generator=generator)
         logits = self.fc1(z).reshape(z.shape[0], 800, 800).float()  # losses/metrics in f32
         return logits, torch.sigmoid(logits)
 
@@ -58,15 +66,33 @@ class RoadMapBase(Task, nn.Module):
         logits, _ = self(images)
         return (logits > 0).float()
 
+    def freeze_mask(self, epoch: int):
+        """None (everything trains) from `unfreeze_epoch_no` on; before it
+        {parameter name: trainable}, False for the encoder's parameters."""
+        if epoch >= self.unfreeze_epoch_no:
+            return None
+        return {name: not name.startswith("encoder.") for name, _ in self.named_parameters()}
+
+    def apply_freeze_mask(self, epoch: int):
+        """Set requires_grad from freeze_mask(epoch); -> the mask. A frozen
+        parameter gets no gradient, so torch.optim.Adam leaves it and its
+        moments as they are, as the JAX step's stop_gradient and zero update
+        do. BatchNorm's running statistics in the frozen encoder still move
+        in training mode, as the JAX step's model state does."""
+        mask = self.freeze_mask(epoch)
+        for name, p in self.named_parameters():
+            p.requires_grad_(mask is None or mask[name])
+        return mask
+
 
 class RoadMap(RoadMapBase):
     """MSE on sigmoid probabilities."""
 
     name = "roadmap_mse"
 
-    def loss(self, batch, *, train: bool):
+    def loss(self, batch, *, train: bool, generator=None):
         self.train(train)
-        _, probs = self(batch["images"])
+        _, probs = self(batch["images"], generator)
         return torch.mean((batch["road"] - probs) ** 2), {}
 
     @torch.no_grad()
@@ -94,9 +120,9 @@ class RoadMapBCE(RoadMapBase):
         return torch.mean(torch.clamp(logits, min=0) - logits * target
                           + torch.log1p(torch.exp(-torch.abs(logits))))
 
-    def loss(self, batch, *, train: bool):
+    def loss(self, batch, *, train: bool, generator=None):
         self.train(train)
-        logits, _ = self(batch["images"])
+        logits, _ = self(batch["images"], generator)
         return self._bce(logits, batch["road"]), {}
 
     @torch.no_grad()
@@ -117,3 +143,4 @@ class RoadMapBCEv2(RoadMapBCE):
 
     name = "roadmap_bce"
     ts_on_logits = False
+    unfreeze_default = 0  # CLI default (roadmap_bce_v2.py:211)

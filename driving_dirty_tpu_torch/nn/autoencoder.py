@@ -1,11 +1,16 @@
-"""Autoencoder components (driving_dirty_tpu/nn/autoencoder.py): DenseBlock
-and Encoder. The Decoder comes with training.
+"""Autoencoder components (driving_dirty_tpu/nn/autoencoder.py): DenseBlock,
+Encoder and Decoder.
 
 Architecture as in the reference (its src/autoencoder/
 components.py:6-52): conv trunk c1 -> c2 -> c3, flatten in NCHW order,
 max-pool(4) over the flat vector, two DenseBlocks, Linear to the latent.
-The trunk is kernels/trunk.py: the CUDA kernel on a CUDA tensor, its plain
-version on a CPU tensor.
+The trunk is kernels/trunk.py: the CUDA kernel on a CUDA tensor (under
+autograd its backward recomputes the plain trunk), its plain version on a
+CPU tensor. The Decoder mirrors the reference's components.py:55-93.
+
+In training mode the DenseBlocks' dropout draws from the `generator` their
+forward is given (torch's default generator when None); `drop_p` sets its
+rate.
 """
 from __future__ import annotations
 
@@ -27,9 +32,9 @@ class DenseBlock(nn.Module):
         self.fc = L.Linear(in_dim, out_dim, device=device, generator=generator)
         self.bn = L.BatchNorm(out_dim, device=device)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = torch.relu(self.bn(self.fc(x)))
-        return L.dropout(x, self.drop_p, self.training)
+        return L.dropout(x, self.drop_p, self.training, generator)
 
 
 class Encoder(nn.Module):
@@ -71,7 +76,7 @@ class Encoder(nn.Module):
         return TRUNK_C * h * w // self.pooling_size
 
     def forward(self, x, *, c3_only: bool = False, with_c3: bool = False,
-                int8: bool = False):
+                int8: bool = False, generator=None):
         if int8:
             raise NotImplementedError("the int8 trunk (precision 8) is not ported yet")
         x = trunk(x, self.c1.weight, self.c1.bias, self.c2.weight, self.c2.bias,
@@ -84,5 +89,44 @@ class Encoder(nn.Module):
         # torch flattens NCHW-contiguously (components.py:46); the fc1 weight
         # rows follow that order.
         x = L.max_pool_flat(x.permute(0, 3, 1, 2).reshape(x.shape[0], -1), self.pooling_size)
-        z = self.fc_z_out(self.fc2(self.fc1(x)))
+        z = self.fc_z_out(self.fc2(self.fc1(x, generator), generator))
         return (z, c3_map) if with_c3 else z
+
+
+class Decoder(nn.Module):
+    """latent [b, latent_dim] -> [b, output_height, output_width, C] NHWC:
+    DenseBlock(latent -> hidden) -> DenseBlock(hidden -> 64 h' w') ->
+    reshape to [b, 64, h', w'] (the reference's element order) -> ConvT
+    (64->32, k3, p1) -> ReLU -> ConvT(32->32, k3, p1) -> ReLU -> ConvT(32->32,
+    k2, s2) -> ReLU -> ConvT(32->C, k1); no final sigmoid."""
+
+    def __init__(self, hidden_dim: int, latent_dim: int, in_channels: int = 3,
+                 output_height: int = 256, output_width: int = 306, drop_p: float = 0.2, *,
+                 device=None, generator=None):
+        super().__init__()
+        self.hidden_dim, self.latent_dim = hidden_dim, latent_dim
+        self.in_channels = in_channels
+        self.output_height, self.output_width = output_height, output_width
+        kw = dict(device=device, generator=generator)
+        h, w = self.deconv_dims
+        self.fc1 = DenseBlock(latent_dim, hidden_dim, drop_p, **kw)
+        self.fc2 = DenseBlock(hidden_dim, 64 * h * w, drop_p, **kw)
+        self.dc1 = L.ConvTranspose2d(64, 32, 3, 1, 1, **kw)
+        self.dc2 = L.ConvTranspose2d(32, 32, 3, 1, 1, **kw)
+        self.dc3 = L.ConvTranspose2d(32, 32, 2, 2, 0, **kw)
+        self.dc4 = L.ConvTranspose2d(32, in_channels, 1, 1, 0, **kw)
+
+    @property
+    def deconv_dims(self):
+        """(h', w'): the reference's probe conv stack (k1s1, k2s2, k3p1, k3p1)
+        applied to the output size, i.e. (H - 2) // 2 + 1."""
+        return (self.output_height - 2) // 2 + 1, (self.output_width - 2) // 2 + 1
+
+    def forward(self, z, generator=None):
+        h, w = self.deconv_dims
+        x = self.fc2(self.fc1(z, generator), generator)
+        x = x.reshape(x.shape[0], 64, h, w).permute(0, 2, 3, 1)
+        x = torch.relu(self.dc1(x))
+        x = torch.relu(self.dc2(x))
+        x = torch.relu(self.dc3(x))
+        return self.dc4(x)

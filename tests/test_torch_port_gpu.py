@@ -13,7 +13,14 @@ f32 2e-4 (the kernel's split-TF32 products are within about 2^-21 of f32
 products, and its f32 sums run in another order; cuDNN with TF32 off),
 bf16 2^-6 (c1, c2 and c3 rounded to bf16 at the same points from sums in
 another order: 2 to 4 bf16 ulps at the largest output). The box
-rasterizer must equal its plain version exactly: 0 differing pixels.
+rasterizer must equal its plain version exactly: 0 differing pixels, on
+seeded box scenes, on the adversarial set of data/boxes.py and on items of
+more boxes than one staging pass of the span kernel holds. The trunk under
+autograd (its forward the kernel, its backward the plain trunk recomputed)
+must give the gradients of autograd through the plain trunk within 1e-4 of
+max|plain| for a fixed cotangent: both run the same backward on the same
+inputs, and only cuDNN's choice of reduction order can differ between the
+calls (sums of up to 3.7M terms, a few 1e-6 of the largest).
 RoIAlign within 4e-6 of max|plain| in either feature dtype and at either
 width (16 B of channels a thread, or one channel a thread for features
 whose channels or address do not allow 16-B loads): both read the same
@@ -29,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from driving_dirty_tpu_torch.data.boxes import box_scenes, detection_rois
+from driving_dirty_tpu_torch.data.boxes import adversarial_boxes, box_scenes, detection_rois
 from driving_dirty_tpu_torch.kernels import raster as R
 from driving_dirty_tpu_torch.kernels import roialign as RA
 from driving_dirty_tpu_torch.kernels import trunk as K
@@ -37,6 +44,7 @@ from driving_dirty_tpu_torch.kernels import trunk as K
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": 2e-4, "bfloat16": 2.0 ** -6}
 ROI_TOL = 4e-6
+GRAD_TOL = 1e-4
 
 
 @pytest.mark.gpu
@@ -101,8 +109,9 @@ def test_trunk_kernel_rejects_what_it_does_not_take():
             fn(torch.zeros(1, 8, 8, 4, device="cuda"), *ws, **kw)
         with pytest.raises(ValueError):
             fn(torch.zeros(1, 8, 16, 3, device="cuda")[:, :, ::2], *ws, **kw)
-        with pytest.raises(NotImplementedError):
-            fn(torch.zeros(1, 8, 8, 3, device="cuda", requires_grad=True), *ws, **kw)
+    with pytest.raises(NotImplementedError):  # the probe takes no gradient; trunk does
+        K.trunk_variant(torch.zeros(1, 8, 8, 3, device="cuda", requires_grad=True), *ws, variant="v1")
+    assert K.trunk(torch.zeros(1, 8, 8, 3, device="cuda", requires_grad=True), *ws).requires_grad
     with pytest.raises(ValueError):
         K.trunk_variant(torch.zeros(1, 8, 8, 3, device="cuda"), *ws, variant="v5")
 
@@ -120,6 +129,80 @@ def test_raster_kernel_equals_plain_on_gpu(size):
     assert R.raster.launches == launches + 1
     assert got.shape == ref.shape == (8, size, size)
     assert int((got != ref).sum()) == 0 and ref.sum() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 256, 1836, 3), (3, 37, 101, 3)])
+def test_trunk_function_gradients_match_plain_on_gpu(shape, dtype):
+    """x and all six parameters, for a fixed cotangent; B1 launches once,
+    in the forward only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    x, ws = _trunk_inputs(shape, dtype)
+    a = [t.clone().requires_grad_() for t in (x, *ws)]
+    b = [t.clone().requires_grad_() for t in (x, *ws)]
+    g = torch.randn((shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, 32),
+                    generator=torch.Generator(device="cuda").manual_seed(1), device="cuda").to(x.dtype)
+    launches = K.trunk.launches
+    out = K.trunk(*a)
+    assert "TrunkFunction" in type(out.grad_fn).__name__
+    out.backward(g)
+    K.trunk_plain(*b).backward(g)
+    torch.cuda.synchronize()
+    assert K.trunk.launches == launches + 1
+    for s, t in zip(a, b):
+        assert s.grad.shape == t.grad.shape and torch.isfinite(s.grad).all()
+        err = (s.grad.float() - t.grad.float()).abs().max().item()
+        assert err <= GRAD_TOL * t.grad.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_adam_steps_lay_out_the_trunk_weights_once_per_step_on_gpu():
+    """Each Adam step writes the weights in place: the next forward must
+    lay them out anew (once) and launch B1 once; the backward launches none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from driving_dirty_tpu_torch.models.basic_ae import BasicAE
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = BasicAE(dict(hidden_dim=8, latent_dim=4, input_height=16, output_height=16),
+                    device="cuda", generator=gen)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    images = torch.randint(0, 256, (2, 6, 16, 306, 3), dtype=torch.uint8, device="cuda", generator=gen)
+    for _ in range(3):
+        launches, calls = K.trunk.launches, K.prepare_weights.calls
+        opt.zero_grad()
+        loss, _ = model.loss(images, train=True, generator=gen)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss)
+        assert K.trunk.launches == launches + 1 and K.prepare_weights.calls == calls + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [800, 148, 157])
+@pytest.mark.parametrize("boxes", ["adversarial", "many"])
+def test_raster_kernel_equals_plain_on_hard_boxes_on_gpu(boxes, size):
+    """The adversarial set, and 500 boxes an item (about 290 valid: more
+    than one 256-record staging pass of the span kernel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if boxes == "adversarial":
+        b, v = adversarial_boxes(0, batch=8, max_bb=100)
+    else:
+        sets = [adversarial_boxes(s, batch=2, max_bb=100) for s in range(5)]
+        b, v = (np.concatenate([s[i] for s in sets], axis=1) for i in (0, 1))
+    b, v = torch.from_numpy(b).cuda(), torch.from_numpy(v).cuda()
+    launches = R.raster.launches
+    got = R.raster(b, v, size)
+    ref = R.raster_plain(b, v, size)
+    torch.cuda.synchronize()
+    assert R.raster.launches == launches + 1
+    assert got.shape == ref.shape == (b.shape[0], size, size)
+    assert int((got != ref).sum()) == 0 and 0 < ref.sum() < ref.numel()
 
 
 @pytest.mark.gpu

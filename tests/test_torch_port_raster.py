@@ -126,12 +126,10 @@ def test_raster_rejects_what_it_does_not_take():
 
 
 def test_pixels_a_box_sets_lie_within_its_bounding_rectangle_plus_two():
-    """csrc/raster.cu culls a box from a tile of rows when its row range,
-    widened by 2 px, misses the tile, and skips a box's edge tests for a
-    pixel outside its bounding rectangle widened by 2 px. That is
-    conservative only if no pixel a box sets lies outside that rectangle:
-    checked here on the plain version for cars, trucks and slivers at two
-    sizes."""
+    """The pixels a box sets lie within its bounding rectangle widened by
+    2 px, checked on the plain version for cars, trucks and slivers at two
+    sizes. (csrc/raster.cu does not rely on it: it finds each box's span in
+    every row of the map, so no margin has to hold for its exactness.)"""
     rng = np.random.RandomState(11)
     boxes, _ = box_scenes(5, batch=1, max_bb=64)
     boxes = boxes[0, 3:60]
