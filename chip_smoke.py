@@ -89,7 +89,27 @@
    encoder), the frozen encoder's parameters bit-identical; ms per step,
    scenes/s, device idle share (steps 1.. under torch.profiler) and peak
    device memory.
-9. Prints the card's name and power limit, one JSON line of kernel records,
+9. Trainer phase, the main-path CLIs at the width of step 8 (batch 8,
+   precision 32) on a synthetic dataset (data/synthetic.py: 5 unlabeled and
+   5 labeled scenes of 8 samples, full-size JPEG views and 800x800 road
+   maps, so 4 training batches and 1 validation batch per task):
+   cli.basic_ae for 2 epochs of 4 batches; the same run stopped by
+   --max_steps 5 and resumed from its last.ckpt, whose losses must match the
+   uninterrupted run's within RESUME_TOL; cli.roadmap (bce_v2) over the
+   basic_ae checkpoint with the encoder frozen in epoch 0 (bit-identical
+   through it, one kernel-weight layout in all) and trained in epoch 1 (one
+   layout after each Adam update); cli.run_test on the roadmap checkpoint;
+   cli.roadmap --precision 16 for 2 steps (B1's bf16 kernel, finite losses);
+   then the frozen roadmap_bce epochs through Trainer with device_prefetch's
+   staging thread and with each batch pinned on the step's thread, in turns
+   (PREFETCH_AB), median step_ms of each.
+   B1 must launch once per train step, validation batch and run_test batch
+   (plus its warm-up), counted from 0 around each CLI call. Each CLI run
+   prints its scenes/s per epoch and median step_ms (from its
+   metrics.jsonl), the device idle share over its last training epoch (or
+   run_test's timed loop) under torch.profiler, its peak device memory and
+   B1 launches, beside the bare loop's figures from step 8.
+10. Prints the card's name and power limit, one JSON line of kernel records,
    and last the JSON line {"ok": true, "device": {...}}.
 
 TF32 is off for cuDNN and cuBLAS in every phase (printed at each).
@@ -100,9 +120,12 @@ of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import shutil
+import statistics
 import sys
 import tempfile
 import time
+import warnings
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from unittest import mock
@@ -112,13 +135,18 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from driving_dirty_tpu_torch.cli import basic_ae as cli_basic_ae
+from driving_dirty_tpu_torch.cli import roadmap as cli_roadmap
+from driving_dirty_tpu_torch.cli import run_test as cli_run_test
 from driving_dirty_tpu_torch.cli.eval_boxes import load_detection_task
 from driving_dirty_tpu_torch.cli.run_test import load_roadmap_model
 from driving_dirty_tpu_torch.core import layers as L
 from driving_dirty_tpu_torch.data.boxes import (adversarial_boxes, box_scenes, detection_rois,
                                                 detection_scenes)
+from driving_dirty_tpu_torch.data.synthetic import generate
 from driving_dirty_tpu_torch.export import load_task_ckpt, save_task_ckpt
 from driving_dirty_tpu_torch.kernels import build
+from driving_dirty_tpu_torch.kernels import trunk as trunk_module
 from driving_dirty_tpu_torch.kernels.raster import raster, raster_plain
 from driving_dirty_tpu_torch.kernels.roialign import (channels_per_thread, roialign, roialign_plain,
                                                       sample_coords)
@@ -133,6 +161,9 @@ from driving_dirty_tpu_torch.ops import detection as det
 from driving_dirty_tpu_torch.ops.maps import raster_geometry
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
 from driving_dirty_tpu_torch.scripts.probe_trunk_variants import device_line, probe_inputs, run_probe
+from driving_dirty_tpu_torch.data.pipeline import tree_map
+from driving_dirty_tpu_torch.train import trainer as trainer_module
+from driving_dirty_tpu_torch.train.task import Task
 
 SEED = 0
 BATCH = 8
@@ -242,6 +273,32 @@ GRAD_TOL = 1e-4
 # (tests/test_training_dynamics_parity.py measured up to 1.7% loss drift
 # over 30 steps between XLA and ATen and allows 5%).
 LOSS_TOL = (1e-4, 5e-2)
+
+# Trainer phase: the main-path CLIs on a synthetic dataset (data/synthetic.py)
+# of full-size JPEG views and 800x800 road maps. CLI_SCENES unlabeled and as
+# many labeled scenes of CLI_SAMPLES samples: the 80/20 scene split leaves 4
+# scenes (4 batches of 8) to train on and 1 (1 batch) to validate, per task.
+CLI_SCENES, CLI_SAMPLES, CLI_BATCHES, CLI_EPOCHS = 5, 8, 4, 2
+CLI_AE_STOP = 5  # --max_steps of the interrupted basic_ae run: mid-epoch 1
+# train_loss of the resumed basic_ae steps against the uninterrupted run's,
+# |relative| <= RESUME_TOL. Both take the same steps on the same batches with
+# the same masked views and dropout (the step generator's state is in the
+# checkpoint) from the same weights and Adam state. In the default modes two
+# runs of the same steps differ: some of cuDNN's backward algorithms sum in
+# an order that changes from run to run, and Adam's early sign-like steps
+# turn those last-bit differences into +-lr steps on weights whose gradient
+# is float noise, which moves the loss by as much as a wrong batch or view
+# could. So the basic_ae
+# runs use deterministic algorithms (cuDNN's, and torch's with a warning for
+# any op that has none, printed), under which the same kernels run on the
+# same data in the same order: the losses must be equal but for the
+# rounding of their JSON log (1e-6).
+RESUME_TOL = 1e-6
+# device_prefetch A/B: the frozen roadmap_bce epochs with its staging
+# thread against pinning each batch on the step's thread (the pipeline
+# before the staging thread), in turns; each a Trainer run of CLI_EPOCHS
+# frozen epochs without checkpoints
+PREFETCH_AB = ("staged", "pinned on the step's thread", "pinned on the step's thread", "staged")
 
 
 def cuda_ms(fn, budget_ms: float = 400.0) -> float:
@@ -1152,6 +1209,297 @@ def training_phase(tmp: Path, smi: str) -> dict:
     return out
 
 
+def metrics_records(root: Path, task: str) -> list[dict]:
+    """Every metrics.jsonl record of a run (all versions, in order)."""
+    recs = []
+    for path in sorted(root.glob(f"{task}/version_*/tb/metrics.jsonl")):
+        recs += [json.loads(line) for line in path.read_text().splitlines()]
+    return recs
+
+
+def range_idle(prof, name: str) -> dict:
+    """{"idle_share", "ms", "busy_ms"} of the profiled range `name` (a
+    record_function on the host): its wall time, the time in it during which
+    a kernel or copy ran on the card, and the share in which none did."""
+    ranges = [e for e in prof.events() if e.name == name and e.device_type == DeviceType.CPU]
+    if len(ranges) != 1:
+        raise RuntimeError(f"the profiler traced {len(ranges)} ranges named {name!r}")
+    t0, t1 = ranges[0].time_range.start, ranges[0].time_range.end
+    spans = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1)) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                   and e.time_range.end > t0 and e.time_range.start < t1)
+    if not spans:
+        raise RuntimeError(f"the profiler traced no device time in {name!r}")
+    busy, end = 0.0, t0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"idle_share": 1 - busy / (t1 - t0), "ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3}
+
+
+def cli_run(label: str, main, argv: list, smi: str, ranges: tuple = ()) -> tuple:
+    """main(argv) with the trunk's launch count set to 0 just before and read
+    just after; under torch.profiler when `ranges` names the profiled ranges
+    whose device idle share is wanted. -> (main's result, its measures)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    prof_ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if ranges else nullcontext()
+    t0 = time.perf_counter()
+    with prof_ctx as prof:
+        result = main(argv)
+        torch.cuda.synchronize()
+    rec = {"seconds": time.perf_counter() - t0, "trunk_launches": trunk.launches,
+           "raster_launches": raster.launches, "roialign_launches": roialign.launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi,
+           "ranges": {name: range_idle(prof, name) for name in ranges}}
+    print(f"{label} ({smi}): {rec['seconds']:.1f} s, B1 launches {rec['trunk_launches']}, peak memory "
+          f"{rec['peak_memory_gb']:.2f} GB" + "".join(
+              f"; '{name}' {r['ms']:.1f} ms, device busy {r['busy_ms']:.1f} ms, idle share {r['idle_share']:.3f}"
+              for name, r in rec["ranges"].items()), flush=True)
+    return result, rec
+
+
+def fit_measures(label: str, root: Path, task: str, rec: dict) -> dict:
+    """The trainer's own numbers from its metrics.jsonl: scenes/s per epoch,
+    median step_ms, train losses by step."""
+    recs = metrics_records(root, task)
+    rec["scenes_per_s_by_epoch"] = [r["scenes_per_sec"] for r in recs if "scenes_per_sec" in r]
+    step_ms = [r["step_ms"] for r in recs if "step_ms" in r]
+    rec["step_ms"] = step_ms
+    rec["median_step_ms"] = statistics.median(step_ms)
+    rec["losses"] = {r["step"]: r["train_loss"] for r in recs if "train_loss" in r}
+    rec["cost_flops"] = next((r["cost_flops"] for r in recs if "cost_flops" in r), None)
+    rec["train_seconds"] = recs[-1]["time"] - recs[0]["time"]  # first step's log to the last record
+    if not all(np.isfinite(list(rec["losses"].values()))):
+        raise RuntimeError(f"{label}: non-finite losses {rec['losses']}")
+    print(f"{label} ({rec['card']}): scenes/s by epoch {rec['scenes_per_s_by_epoch']}, median step_ms "
+          f"{rec['median_step_ms']:.3f} over {len(step_ms)} steps ({', '.join(f'{t:.1f}' for t in step_ms)}; an "
+          f"epoch's first includes its loader's start), first-step FLOPs {rec['cost_flops']}, "
+          f"{rec['train_seconds']:.1f} s from the first step's log to the last record, "
+          f"losses {[rec['losses'][k] for k in sorted(rec['losses'])]}", flush=True)
+    return rec
+
+
+@contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms, and torch's deterministic ones with
+    a warning for each op that has none (printed once, at the end)."""
+    prev = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1], warn_only=prev[2])
+        ops = sorted({str(w.message).split(".")[0][:160] for w in caught
+                      if "deterministic" in str(w.message)})
+        print(f"deterministic algorithms: {len(ops)} kinds of op without one"
+              + "".join(f"\n  {op}" for op in ops), flush=True)
+
+
+def pinned_on_step_thread(iterator, device, size: int = 2):
+    """device_prefetch as it was before its staging thread: each batch
+    pinned on the consumer's thread, then copied non_blocking."""
+    buf = []
+    for item in iterator:
+        buf.append(tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+            device, non_blocking=True), item))
+        if len(buf) > size:
+            yield buf.pop(0)
+    yield from buf
+
+
+def prefetch_ab(tmp: Path, data: Path, ae_ckpt: Path, smi: str) -> list:
+    """PREFETCH_AB: median step_ms of each run, the epochs' first steps
+    (which wait for their loader's first batch) left out."""
+    h = dict(link=str(data), samples_per_scene=CLI_SAMPLES, num_labeled_scenes=CLI_SCENES, batch_size=BATCH,
+             pretrained_path=str(ae_ckpt), unfreeze_epoch_no=CLI_EPOCHS, output_img_freq=0, seed=SEED)
+    out = []
+    for i, how in enumerate(PREFETCH_AB):
+        task = RoadMapBCEv2(h, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+        root = tmp / f"prefetch_ab_{i}"
+        patch = (nullcontext() if how == "staged"
+                 else mock.patch.object(trainer_module, "device_prefetch", pinned_on_step_thread))
+        with patch:
+            trainer_module.Trainer(max_epochs=CLI_EPOCHS, limit_train_batches=CLI_BATCHES, log_every_n_steps=1,
+                                   enable_checkpointing=False, enable_progress_bar=False, seed=SEED,
+                                   default_root_dir=str(root)).fit(task)
+        step_ms = [r["step_ms"] for r in metrics_records(root, "roadmap_bce") if "step_ms" in r]
+        steady = [t for k, t in enumerate(step_ms) if k % CLI_BATCHES]
+        out.append({"prefetch": how, "median_step_ms": statistics.median(steady), "step_ms": step_ms})
+        print(f"roadmap_bce frozen, device_prefetch {how} ({smi}): median step {out[-1]['median_step_ms']:.3f} ms "
+              f"over {len(steady)} steps after each epoch's first ({', '.join(f'{t:.2f}' for t in step_ms)})",
+              flush=True)
+        shutil.rmtree(root)
+        del task
+        torch.cuda.empty_cache()
+    return out
+
+
+def expect(label: str, got, want) -> None:
+    if got != want:
+        raise RuntimeError(f"{label}: {got}, expected {want}")
+
+
+def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
+    """The main-path CLIs at the full width of AE_HPARAMS: cli.basic_ae
+    (uninterrupted; stopped by --max_steps and resumed), cli.roadmap over its
+    encoder (frozen epoch 0, unfrozen epoch 1), cli.run_test on the roadmap
+    checkpoint, and cli.roadmap at precision 16; beside the bare loop's
+    figures of the training phase (`bare`)."""
+    tf32_line("trainer")
+    t_phase = time.perf_counter()
+    data = tmp / "cli_data"
+    generate(str(data), scenes=CLI_SCENES, samples=CLI_SAMPLES, labeled_scenes=CLI_SCENES, seed=SEED)
+    print(f"trainer: synthetic dataset in {time.perf_counter() - t_phase:.1f} s; "
+          f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB free on its disk", flush=True)
+    common = ["--link", str(data), "--samples_per_scene", str(CLI_SAMPLES), "--batch_size", str(BATCH),
+              "--precision", "32", "--max_epochs", str(CLI_EPOCHS), "--limit_train_batches", str(CLI_BATCHES),
+              "--log_every_n_steps", "1", "--output_img_freq", "0", "--seed", str(SEED)]
+    ae_argv = common + ["--num_unlabeled_scenes", str(CLI_SCENES), "--hidden_dim", str(AE_HPARAMS["hidden_dim"]),
+                        "--latent_dim", str(AE_HPARAMS["latent_dim"])]
+    steps = CLI_EPOCHS * CLI_BATCHES
+    out = {}
+
+    # 1. basic_ae, uninterrupted: B1 once a train step and once a validation
+    # batch; deterministic algorithms here and in 2 (see RESUME_TOL)
+    root_a = tmp / "cli_ae"
+    with deterministic_algorithms():
+        fit, rec = cli_run("cli.basic_ae", cli_basic_ae.main, ae_argv + ["--default_root_dir", str(root_a)],
+                           smi, ranges=tuple(f"epoch {e} train" for e in range(CLI_EPOCHS)))
+    expect("cli.basic_ae stop", fit.stop_reason, None)
+    expect("cli.basic_ae B1 launches", rec["trunk_launches"], steps + CLI_EPOCHS)
+    out["basic_ae"] = fit_measures("cli.basic_ae", root_a, "basic_ae", rec)
+    expect("cli.basic_ae steps", sorted(rec["losses"]), list(range(steps)))
+    ae_ckpt = root_a / "basic_ae" / "last.ckpt"
+    del fit
+    torch.cuda.empty_cache()
+
+    # 2. the same run stopped by --max_steps, then resumed from its last.ckpt
+    root_b = tmp / "cli_ae_resume"
+    with deterministic_algorithms():
+        fit, stop = cli_run("cli.basic_ae --max_steps", cli_basic_ae.main,
+                            ae_argv + ["--default_root_dir", str(root_b), "--max_steps", str(CLI_AE_STOP)], smi)
+        expect("cli.basic_ae --max_steps stop", fit.stop_reason, f"max_steps={CLI_AE_STOP} reached")
+        expect("cli.basic_ae --max_steps B1 launches", stop["trunk_launches"], CLI_AE_STOP + 1)
+        last = fit.last_ckpt_path
+        del fit
+        torch.cuda.empty_cache()
+        fit, resumed = cli_run("cli.basic_ae resumed", cli_basic_ae.main,
+                               ae_argv + ["--default_root_dir", str(root_b), "--resume_from_checkpoint", last], smi)
+    expect("cli.basic_ae resumed B1 launches", resumed["trunk_launches"], steps - CLI_AE_STOP + 1)
+    del fit
+    torch.cuda.empty_cache()
+    losses = {r["step"]: r["train_loss"] for r in metrics_records(root_b, "basic_ae") if "train_loss" in r}
+    expect("cli.basic_ae stopped + resumed steps", sorted(losses), list(range(steps)))
+    ref = out["basic_ae"]["losses"]
+    gaps = {k: abs(losses[k] - ref[k]) / abs(ref[k]) for k in range(steps)}
+    before = max(gaps[k] for k in range(CLI_AE_STOP))
+    after = max(gaps[k] for k in range(CLI_AE_STOP, steps))
+    print(f"cli.basic_ae resume ({smi}): steps {CLI_AE_STOP}..{steps - 1} after the resume within "
+          f"{after:.3e} of the uninterrupted run's losses (tolerance {RESUME_TOL}); steps 0..{CLI_AE_STOP - 1} "
+          f"before it, the same steps twice: {before:.3e}", flush=True)
+    if not after <= RESUME_TOL:
+        raise RuntimeError(f"cli.basic_ae: resumed losses {gaps} exceed {RESUME_TOL}")
+    out["basic_ae_resume"] = {"max_rel_gap_after_resume": after, "max_rel_gap_before": before,
+                              "rel_gaps": gaps, "stopped": stop, "resumed": resumed}
+    shutil.rmtree(root_b)
+
+    # 3. roadmap_bce over that encoder: frozen in epoch 0, trained in epoch 1
+    rm_argv = common + ["--variant", "bce_v2", "--num_labeled_scenes", str(CLI_SCENES),
+                        "--pretrained_path", str(ae_ckpt), "--unfreeze_epoch_no", "1"]
+    marks = []
+    apply_freeze_mask = Task.apply_freeze_mask
+
+    def spy(task, epoch):
+        marks.append((epoch, prepare_weights.calls,
+                      {n: p.detach().clone() for n, p in task.named_parameters() if n.startswith("encoder.")}))
+        return apply_freeze_mask(task, epoch)
+
+    root_rm = tmp / "cli_rm"
+    prepare_weights.calls = 0
+    with mock.patch.object(RoadMapBCEv2, "apply_freeze_mask", spy):
+        fit, rec = cli_run("cli.roadmap", cli_roadmap.main, rm_argv + ["--default_root_dir", str(root_rm)], smi,
+                           ranges=tuple(f"epoch {e} train" for e in range(CLI_EPOCHS)))
+    builds = [marks[1][1] - marks[0][1], prepare_weights.calls - marks[1][1]]
+    expect("cli.roadmap B1 launches", rec["trunk_launches"], steps + CLI_EPOCHS)
+    # one layout in all of the frozen epoch; after the unfreeze, one after
+    # each Adam update (the next forward, the last one validation's)
+    expect("cli.roadmap kernel-weight builds by epoch", builds, [1, CLI_BATCHES])
+    moved = [n for n, v in marks[0][2].items() if not torch.equal(v, marks[1][2][n])]
+    expect("cli.roadmap encoder parameters changed in the frozen epoch", moved, [])
+    trained = dict(fit.task.named_parameters())
+    if all(torch.equal(v, trained[n]) for n, v in marks[1][2].items()):
+        raise RuntimeError("cli.roadmap: the encoder did not move after the unfreeze")
+    print(f"cli.roadmap: encoder parameters bit-identical through epoch 0, moved in epoch 1; "
+          f"kernel-weight builds by epoch {builds}", flush=True)
+    out["roadmap_bce"] = fit_measures("cli.roadmap", root_rm, "roadmap_bce", rec)
+    out["roadmap_bce"]["weight_builds_by_epoch"] = builds
+    rm_ckpt = fit.last_ckpt_path
+    del fit, marks, trained
+    torch.cuda.empty_cache()
+
+    # 4. run_test scores the labeled scenes with the roadmap checkpoint
+    res, rec = cli_run("cli.run_test", cli_run_test.main,
+                       ["--rm_ckpt_path", rm_ckpt, "--link", str(data), "--num_labeled_scenes", str(CLI_SCENES),
+                        "--samples_per_scene", str(CLI_SAMPLES), "--batch_size", str(BATCH)], smi,
+                       ranges=("run_test predict",))
+    expect("cli.run_test scenes", res["n_scenes"], CLI_SCENES * CLI_SAMPLES)
+    expect("cli.run_test B1 launches", rec["trunk_launches"], CLI_SCENES * CLI_SAMPLES // BATCH + 1)
+    if not 0 <= res["avg_ts"] <= 1:
+        raise RuntimeError(f"cli.run_test: avg_ts {res['avg_ts']}")
+    print(f"cli.run_test ({smi}): {res['scenes_per_sec']:.1f} scenes/s, avg_ts {res['avg_ts']:.4f} over "
+          f"{res['n_scenes']} scenes", flush=True)
+    out["run_test"] = {**rec, **res}
+    shutil.rmtree(root_rm)
+    torch.cuda.empty_cache()
+
+    # 5. roadmap at precision 16: B1's bf16 kernel
+    dtypes = []
+    launch = trunk_module._launch
+
+    def spy_launch(x, params, stages):
+        dtypes.append(x.dtype)
+        return launch(x, params, stages)
+
+    root_16 = tmp / "cli_rm16"
+    with mock.patch.object(trunk_module, "_launch", spy_launch):
+        fit, rec = cli_run("cli.roadmap --precision 16", cli_roadmap.main,
+                           rm_argv[:rm_argv.index("--precision")] + ["--precision", "16"]
+                           + rm_argv[rm_argv.index("--precision") + 2:]
+                           + ["--default_root_dir", str(root_16), "--max_steps", "2"], smi)
+    expect("cli.roadmap --precision 16 B1 launches", rec["trunk_launches"], 2)
+    expect("cli.roadmap --precision 16 trunk dtypes", dtypes, [torch.bfloat16] * 2)
+    out["roadmap_bce_16"] = fit_measures("cli.roadmap --precision 16", root_16, "roadmap_bce", rec)
+    del fit
+    shutil.rmtree(root_16)
+    torch.cuda.empty_cache()
+
+    # 6. device_prefetch's staging thread against pinning on the step's thread
+    out["prefetch_ab"] = prefetch_ab(tmp, data, ae_ckpt, smi)
+    shutil.rmtree(root_a)  # the roadmap runs' pretrained_path, read until here
+
+    # the trainer against the bare loop of the training phase (same widths,
+    # batch and precision; the bare loop has no data loading, logging,
+    # validation or checkpoints)
+    for name, b in (("basic_ae", bare["basic_ae"]), ("roadmap_bce", bare["roadmap_bce"])):
+        t = out[name]
+        idle = ", ".join(f"{r['idle_share']:.3f}" for r in t["ranges"].values())
+        print(f"{name} ({smi}): trainer {t['scenes_per_s_by_epoch']} scenes/s by epoch, median step "
+              f"{t['median_step_ms']:.3f} ms, idle share by epoch {idle}, peak {t['peak_memory_gb']:.2f} GB; "
+              f"bare loop {b['window']['scenes_per_s']:.1f} scenes/s, {b['window']['wall_ms']:.3f} ms a step, "
+              f"idle share {b['window']['idle_share']:.3f}, peak {b['peak_memory_gb']:.2f} GB", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"trainer phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1183,6 +1531,7 @@ def main() -> int:
         boxes = box_phase(Path(tmp), smi)
         detection = detection_phase(Path(tmp), smi)
         training = training_phase(Path(tmp), smi)
+        trainer = trainer_phase(Path(tmp), smi, training)
 
     for r in records:
         precision = 32 if r["dtype"] == "float32" else 16
@@ -1196,10 +1545,15 @@ def main() -> int:
         precision = 32 if r["dtype"] == "float32" else 16
         r["launches"] = detection[f"faster_rcnn_rm_{precision}"]["predict_launches"]["roialign"]
     records += roialign_recs + variant_recs
+    f32_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "float32")
+    f32_path["cli_launches"] = {k: trainer[k]["trunk_launches"] for k in ("basic_ae", "roadmap_bce", "run_test")}
+    bf16_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "bfloat16")
+    bf16_path["cli_launches"] = {"roadmap_bce_16": trainer["roadmap_bce_16"]["trunk_launches"]}
     print(json.dumps({"serving": served, "box_family": boxes, "detection": detection,
-                      "training": training}))
+                      "training": training, "trainer": trainer}, default=str))
     print(smi)
     print(json.dumps({"kernels": records}))
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

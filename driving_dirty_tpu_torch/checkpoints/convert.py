@@ -106,34 +106,64 @@ def _put(tree, path, leaf):
     tree[last] = leaf
 
 
+def _jax_place(key, ndim, keys, transposed):
+    """Where one state_dict entry goes in the JAX trees -> ("params" or
+    "state", its dotted JAX path, the permutation from the torch layout to
+    the JAX one or None). `keys`: the state_dict's keys (a BatchNorm is
+    known by its running_mean)."""
+    prefix, _, name = key.rpartition(".")
+    if name == "running_mean":
+        return "state", f"{prefix}.mean", None
+    if name == "running_var":
+        return "state", f"{prefix}.var", None
+    if f"{prefix}.running_mean" in keys:
+        return "params", f"{prefix}.{'scale' if name == 'weight' else 'bias'}", None
+    if name == "weight" and ndim == 4:
+        return "params", f"{prefix}.w", _CONVT if prefix in transposed else _CONV_TO_JAX
+    if name == "weight" and ndim == 2:
+        return "params", f"{prefix}.w", (1, 0)
+    if name == "bias":
+        return "params", f"{prefix}.b", None
+    raise ValueError(f"{key}: no JAX layout for this entry")
+
+
+def host_array(t, perm=None) -> np.ndarray:
+    """A numpy copy of tensor `t` on the host, permuted by `perm`: a
+    snapshot that later in-place writes to `t` do not reach. The permute
+    runs on `t`'s device, where a card transposes far faster than numpy."""
+    t = t.detach()
+    if perm is None:
+        return t.to("cpu", copy=True).numpy()
+    return t.permute(perm).contiguous().cpu().numpy()  # contiguous() made the copy
+
+
 def to_jax(state_dict, *, transposed=()) -> tuple[dict, dict]:
-    """A state_dict -> JAX (params, state) pytrees of numpy arrays.
-    `transposed`: the dotted paths whose 4-d weight is a ConvTranspose2d."""
-    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
-    params: dict = {}
-    state: dict = {}
+    """A state_dict -> JAX (params, state) pytrees of numpy arrays (host
+    copies). `transposed`: the dotted paths whose 4-d weight is a
+    ConvTranspose2d."""
+    trees: dict = {"params": {}, "state": {}}
     seen: set = set()
-    for key, v in sd.items():
-        prefix, _, name = key.rpartition(".")
-        bn = f"{prefix}.running_mean" in sd
-        if name == "running_mean":
-            _put(state, f"{prefix}.mean", v)
-        elif name == "running_var":
-            _put(state, f"{prefix}.var", v)
-        elif bn:
-            _put(params, f"{prefix}.{'scale' if name == 'weight' else 'bias'}", v)
-        elif name == "weight" and v.ndim == 4:
-            seen.add(prefix)
-            perm = _CONVT if prefix in transposed else _CONV_TO_JAX
-            _put(params, f"{prefix}.w", np.ascontiguousarray(v.transpose(perm)))
-        elif name == "weight" and v.ndim == 2:
-            _put(params, f"{prefix}.w", np.ascontiguousarray(v.T))
-        elif name == "bias":
-            _put(params, f"{prefix}.b", v)
-        else:
-            raise ValueError(f"{key}: no JAX layout for this entry")
+    for key, v in state_dict.items():
+        section, path, perm = _jax_place(key, v.ndim, state_dict, transposed)
+        if v.ndim == 4:
+            seen.add(key.rpartition(".")[0])
+        _put(trees[section], path, host_array(v, perm))
     _check_transposed(transposed, seen)
-    return params, state
+    return trees["params"], trees["state"]
+
+
+def param_layouts(model) -> list[tuple[str, tuple | None]]:
+    """(parameter name, permutation from its torch layout to the JAX one or
+    None) for every parameter of `model`, in the order jax.tree.leaves
+    visits the JAX params tree (dict keys sorted at every level): the order
+    of the per-parameter leaves of an optax state."""
+    keys = model.state_dict(keep_vars=True)
+    transposed = transposed_paths(model)
+    placed = []
+    for name, p in model.named_parameters():
+        _, path, perm = _jax_place(name, p.ndim, keys, transposed)
+        placed.append((tuple(path.split(".")), name, perm))
+    return [(name, perm) for _, name, perm in sorted(placed)]
 
 
 def model_to_jax(model) -> tuple[dict, dict]:

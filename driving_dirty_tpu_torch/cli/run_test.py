@@ -6,8 +6,9 @@ truth, and report scenes/sec.
     python -m driving_dirty_tpu_torch.cli.run_test --rm_ckpt_path <ckpt> \
         --link <data> [--batch_size 1] [--out masks.npz] [--device cuda]
 
-Takes the framework's .ckpt files (either package writes them). The
-reference's Lightning rm.ckpt import is not ported yet.
+Takes the framework's .ckpt files (either package writes them) and the
+reference's PyTorch Lightning rm.ckpt files, imported in memory through
+checkpoints/torch_import.py.
 """
 from __future__ import annotations
 
@@ -16,9 +17,11 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from driving_dirty_tpu_torch.checkpoints import io as ckpt_io
 from driving_dirty_tpu_torch.checkpoints.convert import load_jax_weights
+from driving_dirty_tpu_torch.checkpoints.torch_import import import_roadmap
 from driving_dirty_tpu_torch.core.device import resolve_device
 from driving_dirty_tpu_torch.data.dataset import LABELED_SCENES, NUM_SAMPLE_PER_SCENE, LabeledDataset
 from driving_dirty_tpu_torch.data.pipeline import Loader, device_prefetch
@@ -28,17 +31,28 @@ from driving_dirty_tpu_torch.models.roadmap import RoadMapBCEv2
 
 def load_roadmap_model(ckpt_path, precision=None, device=None):
     """-> a RoadMapBCEv2 for inference (eval mode, no gradients) on `device`
-    (default cuda) with the checkpoint's weights."""
+    (default cuda) with the checkpoint's weights: a framework .ckpt, or a
+    Lightning roadmap checkpoint, whose encoder dims come from its weights."""
     device = resolve_device(device)
-    blob = ckpt_io.load(ckpt_path)
-    if not blob["params"]:
-        raise ValueError(f"{ckpt_path}: no params — not a framework checkpoint")
-    hparams = dict(blob["hparams"] or {})
+    if ckpt_io.is_checkpoint(ckpt_path):
+        blob = ckpt_io.load(ckpt_path, opt_state=False)
+        if not blob["params"]:
+            raise ValueError(f"{ckpt_path}: no params — not a framework checkpoint")
+        params, state = blob["params"], blob["state"]
+        hparams = dict(blob["hparams"] or {})
+    else:
+        params, state, th = import_roadmap(ckpt_path)
+        hparams = {k: v for k, v in th.items() if isinstance(v, (int, float, str, bool))}
+        hparams.setdefault("ae_latent_dim", int(params["fc1"]["w"].shape[0]))
+        hparams.setdefault("ae_hidden_dim", int(params["encoder"]["fc_z_out"]["w"].shape[0]))
+        # the encoder's weights are in this checkpoint: a pretrained_path
+        # among its hparams names a file of the run that wrote it
+        hparams["pretrained_path"] = None
     hparams.setdefault("pretrained_path", None)
     if precision is not None:
         hparams["precision"] = precision
     model = RoadMapBCEv2(hparams, device=device)
-    load_jax_weights(model, blob["params"], blob["state"], what=str(ckpt_path))
+    load_jax_weights(model, params, state, what=str(ckpt_path))
     return model.eval().requires_grad_(False)
 
 
@@ -76,19 +90,20 @@ def main(argv=None):
     masks, ts_scores = [], []
     n_scenes = 0
     t0 = time.perf_counter()
-    for i, (batch, bmask) in enumerate(device_prefetch(iter(loader), device)):
-        if args.limit_batches is not None and i >= args.limit_batches:
-            break
-        pred = model.predict(batch["images"])
-        for j, valid in enumerate(bmask.tolist()):
-            if not valid:
-                continue
-            ts_scores.append(float(ts_road_map(batch["road"][j], pred[j])))
-            n_scenes += 1
-            if args.out:
-                masks.append(pred[j].to(torch.uint8).cpu().numpy())
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with record_function("run_test predict"):  # the timed loop, for profilers run around main
+        for i, (batch, bmask) in enumerate(device_prefetch(iter(loader), device)):
+            if args.limit_batches is not None and i >= args.limit_batches:
+                break
+            pred = model.predict(batch["images"])
+            for j, valid in enumerate(bmask.tolist()):
+                if not valid:
+                    continue
+                ts_scores.append(float(ts_road_map(batch["road"][j], pred[j])))
+                n_scenes += 1
+                if args.out:
+                    masks.append(pred[j].to(torch.uint8).cpu().numpy())
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
 
     sps = n_scenes / dt if dt > 0 else 0.0

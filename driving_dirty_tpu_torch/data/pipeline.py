@@ -3,9 +3,10 @@
   * `Loader`: a thread pool decodes items concurrently (PIL releases the
     GIL in its decode loop) into fixed-shape NHWC numpy batches; the final
     partial batch is padded and masked, so every batch has the same shapes.
-  * `device_prefetch`: keeps batches in flight on the device: each array is
-    copied from pinned host memory with `non_blocking=True`, so the copy
-    overlaps the work queued before it.
+  * `device_prefetch`: keeps batches in flight on the device. On CUDA a
+    staging thread copies each batch into pinned host memory, so the
+    consumer's thread only queues `non_blocking=True` copies, which overlap
+    the work queued before them.
 """
 from __future__ import annotations
 
@@ -135,24 +136,74 @@ class Loader:
                 out_q.get_nowait()
 
 
-def _to_device(tree, device):
+def tree_map(fn, tree):
+    """fn over the leaves of a pytree of dicts, lists and tuples."""
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
-    t = torch.from_numpy(np.ascontiguousarray(tree))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _pinned(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+
+
+def _staged(iterator, size: int):
+    """Items of `iterator` with their arrays in pinned host memory, made on
+    a staging thread at most `size` items ahead of the consumer."""
+    out_q: queue.Queue = queue.Queue(maxsize=size)
+    stop = threading.Event()
+
+    def put(item):
+        while not stop.is_set():
+            try:
+                out_q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def stage():
+        try:
+            for item in iterator:
+                if stop.is_set():
+                    return
+                put(tree_map(_pinned, item))
+            put(None)
+        except BaseException as e:  # noqa: BLE001 — re-raised by the consumer
+            put(_ProducerError(e))
+        finally:
+            if hasattr(iterator, "close"):
+                iterator.close()
+
+    t = threading.Thread(target=stage, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = out_q.get()
+            if item is None:
+                return
+            if isinstance(item, _ProducerError):
+                raise item.exc
+            yield item
+    finally:
+        stop.set()
+        t.join()
 
 
 def device_prefetch(iterator, device, size: int = 2):
     """Keep `size` batches in flight on `device` ahead of the consumer.
     Items are pytrees of numpy arrays; they come out as tensors."""
     device = torch.device(device)
+    if device.type == "cuda":
+        items = (tree_map(lambda t: t.to(device, non_blocking=True), item)
+                 for item in _staged(iterator, size))
+    else:
+        items = (tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device), item)
+                 for item in iterator)
     buf = []
-    for item in iterator:
-        buf.append(_to_device(item, device))
+    for item in items:
+        buf.append(item)
         if len(buf) > size:
             yield buf.pop(0)
     yield from buf

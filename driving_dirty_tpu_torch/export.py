@@ -31,7 +31,7 @@ def load_task_ckpt(ckpt_path, precision=None, classes=None, device=None, default
     NotImplementedError)."""
     classes = TASKS if classes is None else classes
     device = resolve_device(device)
-    blob = ckpt_io.load(ckpt_path)
+    blob = ckpt_io.load(ckpt_path, opt_state=False)
     task_name = blob["meta"].get("task", default_task)
     if task_name not in classes:
         raise ValueError(f"checkpoint task {task_name!r} is not one of {sorted(classes)}")

@@ -13,7 +13,10 @@ same generator state draw the same. The encoder's conv trunk is kernel B1
 on the card; under autograd its backward recomputes the plain trunk, which
 is also the step's remat of the encoder (the JAX package wraps the encoder
 in jax.checkpoint). Downstream models take only the encoder
-(`build_encoder`, models/pretrained.py).
+(`build_encoder`, models/pretrained.py). `cache_dir` wraps the datasets in
+the decode-once sample cache (data/cache.py); `add_model_specific_args`
+gives the CLI's flags, whose defaults (hidden 256) differ from the
+constructor's.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ import os
 import torch
 from torch import nn
 
+from driving_dirty_tpu_torch.cli.hyperopt import opt_list
 from driving_dirty_tpu_torch.core.device import resolve_device
+from driving_dirty_tpu_torch.data.cache import SampleCache
 from driving_dirty_tpu_torch.data.dataset import (
     NUM_SAMPLE_PER_SCENE,
     UNLABELED_SCENES,
@@ -97,16 +102,17 @@ class BasicAE(AEConfig, nn.Module):
     # --- data ------------------------------------------------------------
     def _datasets(self):
         h = self.hparams
-        if hp(h, "cache_dir", None):
-            raise NotImplementedError("the decode-once sample cache (cache_dir) is not ported yet")
         link = hp(h, "link", None)
         sps = hp(h, "samples_per_scene", NUM_SAMPLE_PER_SCENE)
         n_scenes = hp(h, "num_unlabeled_scenes", len(UNLABELED_SCENES))
         train_idx, val_idx = scene_split(UNLABELED_SCENES[:n_scenes], seed=hp(h, "seed", 20200505))
 
+        cache_dir = hp(h, "cache_dir", None)
+
         def mk(idx):
-            return UnlabeledDataset(link, idx, "sample", samples_per_scene=sps,
-                                    raw_uint8=bool(hp(h, "uint8_pipeline", True)))
+            ds = UnlabeledDataset(link, idx, "sample", samples_per_scene=sps,
+                                  raw_uint8=bool(hp(h, "uint8_pipeline", True)))
+            return SampleCache(ds, cache_dir) if cache_dir else ds
 
         return mk(train_idx), mk(val_idx)
 
@@ -125,7 +131,7 @@ class BasicAE(AEConfig, nn.Module):
 
     # --- logging ---------------------------------------------------------
     @torch.no_grad()
-    def log_images(self, batch, step_name: str, view=None, generator=None):
+    def log_images(self, batch, step_name: str, generator=None, view=None):
         """The first scene's reconstruction (clipped to [0, 1]) and target,
         in eval mode: {"<step_name>_predicted_images", "<step_name>_target_images"},
         [H, W, C] each."""
@@ -134,3 +140,27 @@ class BasicAE(AEConfig, nn.Module):
         y_hat, y = self(images[:1], view, generator)
         return {f"{step_name}_predicted_images": y_hat[0].clamp(0, 1),
                 f"{step_name}_target_images": y[0]}
+
+    # --- CLI -------------------------------------------------------------
+    @staticmethod
+    def add_model_specific_args(parser):
+        # flags and defaults of the reference's autoencoder.py:161-182 (the
+        # CLI's hidden_dim 256 differs from the constructor's 128); the
+        # tunable grid dimensions are declared in place, test-tube style
+        parser.add_argument("--hidden_dim", type=int, default=256)
+        opt_list(parser, "--latent_dim", type=int, default=128, options=[64, 128], tunable=True)
+        opt_list(parser, "--learning_rate", type=float, default=1e-3,
+                 options=[1e-3, 1e-4, 1e-5], tunable=True)
+        parser.add_argument("--batch_size", type=int, default=16)
+        parser.add_argument("--input_width", type=int, default=306 * 6)
+        parser.add_argument("--input_height", type=int, default=256)
+        parser.add_argument("--output_width", type=int, default=306)
+        parser.add_argument("--output_height", type=int, default=256)
+        parser.add_argument("--in_channels", type=int, default=3)
+        parser.add_argument("--link", type=str, default="/scratch/ab8690/DLSP20Dataset/data")
+        parser.add_argument("--output_img_freq", type=int, default=500)
+        parser.add_argument("--samples_per_scene", type=int, default=NUM_SAMPLE_PER_SCENE)
+        parser.add_argument("--num_unlabeled_scenes", type=int, default=len(UNLABELED_SCENES))
+        parser.add_argument("--cache_dir", type=str, default=None,
+                            help="decode-once sample cache directory (data/cache.py)")
+        return parser

@@ -1,13 +1,14 @@
 """Labeled-dataset plumbing shared by the roadmap and box tasks
-(driving_dirty_tpu/models/labeled_data.py:20-65): labeled scenes 106-133,
-a scene-level 80/20 split, annotation.csv from the data root. The argparse
-helpers come with the CLIs; the decode-once sample cache (`cache_dir`) is
-not ported yet and raises.
+(driving_dirty_tpu/models/labeled_data.py): labeled scenes 106-133, a
+scene-level 80/20 split, annotation.csv from the data root, the optional
+decode-once sample cache (`cache_dir`, data/cache.py), and the labeled
+tasks' data flags (`add_labeled_data_args`).
 """
 from __future__ import annotations
 
 import os
 
+from driving_dirty_tpu_torch.data.cache import SampleCache
 from driving_dirty_tpu_torch.data.dataset import (
     LABELED_SCENES,
     NUM_SAMPLE_PER_SCENE,
@@ -21,18 +22,18 @@ from driving_dirty_tpu_torch.train.task import hp
 class LabeledDataMixin:
     def _labeled_datasets(self, extra_info=False):
         h = self.hparams
-        if hp(h, "cache_dir", None):
-            raise NotImplementedError("the decode-once sample cache (cache_dir) is not ported yet")
         link = hp(h, "link", None)
         annotation = hp(h, "annotation_file", None) or f"{link}/annotation.csv"
         sps = hp(h, "samples_per_scene", NUM_SAMPLE_PER_SCENE)
         n_scenes = hp(h, "num_labeled_scenes", len(LABELED_SCENES))
         train_idx, val_idx = scene_split(LABELED_SCENES[:n_scenes], seed=hp(h, "seed", 20200505))
+        cache_dir = hp(h, "cache_dir", None)
 
         def mk(idx):
-            return LabeledDataset(link, annotation, idx, max_boxes=hp(h, "max_bb", 100),
-                                  extra_info=extra_info, samples_per_scene=sps,
-                                  raw_uint8=bool(hp(h, "uint8_pipeline", True)))
+            ds = LabeledDataset(link, annotation, idx, max_boxes=hp(h, "max_bb", 100),
+                                extra_info=extra_info, samples_per_scene=sps,
+                                raw_uint8=bool(hp(h, "uint8_pipeline", True)))
+            return SampleCache(ds, cache_dir) if cache_dir else ds
 
         return mk(train_idx), mk(val_idx)
 
@@ -48,3 +49,16 @@ class LabeledDataMixin:
     def val_loader(self):
         _, va = self._labeled_datasets()
         return Loader(va, self.batch_size, shuffle=False, num_workers=self._num_workers())
+
+
+def add_labeled_data_args(parser):
+    parser.add_argument("--link", type=str, default="/scratch/ab8690/DLSP20Dataset/data")
+    parser.add_argument("--pretrained_path", type=str, default=None)
+    parser.add_argument("--output_img_freq", type=int, default=500)
+    parser.add_argument("--samples_per_scene", type=int, default=NUM_SAMPLE_PER_SCENE)
+    parser.add_argument("--num_labeled_scenes", type=int, default=len(LABELED_SCENES))
+    parser.add_argument("--cache_dir", type=str, default=None,
+                        help="decode-once sample cache directory (data/cache.py): "
+                             "epoch 2+ reads memmapped device-ready items instead "
+                             "of re-decoding JPEG/PNG/CSV; shared across tasks")
+    return parser

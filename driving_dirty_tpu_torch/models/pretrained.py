@@ -20,7 +20,7 @@ def load_pretrained_ae(hparams):
     checkpoint is given; init_backbone then initializes fresh."""
     path = hp(hparams, "pretrained_path", None)
     if path:
-        blob = ckpt_io.load(path)
+        blob = ckpt_io.load(path, opt_state=False)
         state = blob.get("state") or {}
         return AEConfig(blob["hparams"]), (blob["params"]["encoder"], state.get("encoder"))
     ae = AEConfig(

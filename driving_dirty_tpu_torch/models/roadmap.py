@@ -9,19 +9,23 @@
 
 Images are [b, 6, H, W, 3] NHWC (uint8 or float), masks [b, 800, 800].
 `loss(batch, train=True, generator=...)` is the training loss, the encoder's
-dropout drawn from `generator`. `freeze_mask` / `apply_freeze_mask` freeze
-the pretrained encoder before `unfreeze_epoch_no` (30 for roadmap_mse and
-roadmap_bce_v1, 0 for roadmap_bce unless the hparam says otherwise). The
-LR schedule and image logging come with the trainer.
+dropout drawn from `generator`. `freeze_mask` (applied by the Task's
+`apply_freeze_mask`) freezes the pretrained encoder before
+`unfreeze_epoch_no` (30 for roadmap_mse and roadmap_bce_v1, 0 for
+roadmap_bce unless the hparam says otherwise). roadmap_bce lowers its LR on
+a plateau (patience 10, factor 0.1). The labeled loaders come from
+models/labeled_data.py, the CLI flags from `add_model_specific_args`.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from driving_dirty_tpu_torch.cli.hyperopt import tune
 from driving_dirty_tpu_torch.core import layers as L
 from driving_dirty_tpu_torch.core.device import resolve_device
 from driving_dirty_tpu_torch.metrics.threat import ts_road_map
+from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin, add_labeled_data_args
 from driving_dirty_tpu_torch.models.precision import compute_dtype
 from driving_dirty_tpu_torch.models.pretrained import init_backbone, load_pretrained_ae
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
@@ -30,7 +34,7 @@ from driving_dirty_tpu_torch.train.task import Task, hp
 MAP_PIXELS = 800 * 800
 
 
-class RoadMapBase(Task, nn.Module):
+class RoadMapBase(LabeledDataMixin, Task, nn.Module):
     name = "roadmap_base"
     unfreeze_default = 30  # hard-coded in mse / bce-v1 (roadmap_pretrain_ae.py:131)
 
@@ -39,6 +43,7 @@ class RoadMapBase(Task, nn.Module):
         Task.__init__(self, hparams)
         h = self.hparams
         device = resolve_device(device)
+        self.batch_size = hp(h, "batch_size", 16)
         self.compute_dtype = compute_dtype(hp(h, "precision", 32))
         self.ae, ae_weights = load_pretrained_ae(h)
         self.latent_dim = self.ae.latent_dim
@@ -73,16 +78,27 @@ class RoadMapBase(Task, nn.Module):
             return None
         return {name: not name.startswith("encoder.") for name, _ in self.named_parameters()}
 
-    def apply_freeze_mask(self, epoch: int):
-        """Set requires_grad from freeze_mask(epoch); -> the mask. A frozen
-        parameter gets no gradient, so torch.optim.Adam leaves it and its
-        moments as they are, as the JAX step's stop_gradient and zero update
-        do. BatchNorm's running statistics in the frozen encoder still move
-        in training mode, as the JAX step's model state does."""
-        mask = self.freeze_mask(epoch)
-        for name, p in self.named_parameters():
-            p.requires_grad_(mask is None or mask[name])
-        return mask
+    @torch.no_grad()
+    def log_images(self, batch, step_name: str, generator=None):
+        """The first scene's stitched input and its target and predicted
+        (rounded) road maps, in eval mode (the reference's _log_rm_images
+        triptych, roadmap_bce_v2.py:110-123)."""
+        self.eval()
+        x = batch["images"][:1]
+        _, probs = self(x)
+        return {
+            f"{step_name}_input_images": normalize_images(wide_stitch(x), torch.float32)[0].clamp(0, 1),
+            f"{step_name}_target_roadmaps": batch["road"][0][..., None],
+            f"{step_name}_pred_roadmaps": torch.round(probs[0])[..., None],
+        }
+
+    @staticmethod
+    def add_model_specific_args(parser):
+        parser.add_argument("--learning_rate", type=float, default=1e-3)
+        parser.add_argument("--batch_size", type=int, default=16)
+        parser.add_argument("--unfreeze_epoch_no", type=int, default=None)
+        add_labeled_data_args(parser)
+        return parser
 
 
 class RoadMap(RoadMapBase):
@@ -90,13 +106,19 @@ class RoadMap(RoadMapBase):
 
     name = "roadmap_mse"
 
+    @staticmethod
+    def add_model_specific_args(parser):
+        RoadMapBase.add_model_specific_args(parser)
+        tune(parser, "learning_rate", [1e-3, 1e-4, 1e-5])
+        return parser
+
     def loss(self, batch, *, train: bool, generator=None):
         self.train(train)
         _, probs = self(batch["images"], generator)
         return torch.mean((batch["road"] - probs) ** 2), {}
 
     @torch.no_grad()
-    def val_metrics(self, batch):
+    def val_metrics(self, batch, generator=None):
         self.eval()
         _, probs = self(batch["images"])
         target = batch["road"]
@@ -126,7 +148,7 @@ class RoadMapBCE(RoadMapBase):
         return self._bce(logits, batch["road"]), {}
 
     @torch.no_grad()
-    def val_metrics(self, batch):
+    def val_metrics(self, batch, generator=None):
         self.eval()
         logits, probs = self(batch["images"])
         target = batch["road"]
@@ -144,3 +166,12 @@ class RoadMapBCEv2(RoadMapBCE):
     name = "roadmap_bce"
     ts_on_logits = False
     unfreeze_default = 0  # CLI default (roadmap_bce_v2.py:211)
+
+    @staticmethod
+    def add_model_specific_args(parser):
+        RoadMapBase.add_model_specific_args(parser)
+        tune(parser, "unfreeze_epoch_no", [0, 20])  # the v2 grid (roadmap_bce_v2.py:211)
+        return parser
+
+    def lr_schedule(self):
+        return {"plateau_patience": 10, "factor": 0.1}

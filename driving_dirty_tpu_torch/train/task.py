@@ -3,7 +3,11 @@
 A Task owns its architecture and data and reads its settings from hparams
 (a dict or a namespace, as stored in checkpoints). In this package a task is
 also an nn.Module that owns its weights, so the methods take batches, not
-parameter pytrees.
+parameter pytrees (driving_dirty_tpu/train/task.py:45-101). The trainer
+(train/trainer.py) owns optimization, checkpoints and logging.
+
+A task may also define `step_variant(global_step)`: the trainer calls it
+before every training step, for tasks that switch behaviour by step.
 """
 from __future__ import annotations
 
@@ -47,13 +51,14 @@ class Task:
         self.hparams = as_namespace(hparams)
 
     # --- model -----------------------------------------------------------
-    def loss(self, batch, *, train: bool):
-        """-> (loss_scalar, metrics_dict)."""
+    def loss(self, batch, *, train: bool, generator=None):
+        """-> (loss_scalar, metrics_dict); random draws from `generator`."""
         raise NotImplementedError
 
-    def val_metrics(self, batch):
-        """-> metrics dict including 'val_loss'. Default: eval-mode loss."""
-        loss, metrics = self.loss(batch, train=False)
+    def val_metrics(self, batch, generator=None):
+        """-> metrics dict including 'val_loss'. Default: eval-mode loss,
+        its random draws (if any) from `generator`."""
+        loss, metrics = self.loss(batch, train=False, generator=generator)
         out = {"val_loss": loss}
         out.update({f"val_{k}": v for k, v in metrics.items() if k != "loss"})
         return out
@@ -71,9 +76,31 @@ class Task:
         (the reference's src/roadmap_model/roadmap_bce_v2.py:156)."""
         return None
 
+    def freeze_mask(self, epoch: int):
+        """{parameter name: trainable} for staged fine-tuning, or None
+        (everything trains)."""
+        return None
+
+    def apply_freeze_mask(self, epoch: int):
+        """Set requires_grad from freeze_mask(epoch); -> the mask. A frozen
+        parameter gets no gradient, which train/optim.py:Adam reads as
+        optax's exact-zero gradient: it and its zero moments stay as they
+        are, as the JAX step's stop_gradient leaves them. BatchNorm running
+        statistics of frozen layers still move in training mode, as the JAX
+        step's model state does."""
+        mask = self.freeze_mask(epoch)
+        for name, p in self.named_parameters():
+            p.requires_grad_(mask is None or mask[name])
+        return mask
+
     # --- data ------------------------------------------------------------
     def train_loader(self):
         raise NotImplementedError
 
     def val_loader(self):
         raise NotImplementedError
+
+    # --- logging ---------------------------------------------------------
+    def log_images(self, batch, step_name: str, generator=None):
+        """Optional: {name: [H, W, C] image in [0, 1]} for the image logger."""
+        return {}

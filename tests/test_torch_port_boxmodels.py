@@ -259,5 +259,10 @@ def test_labeled_loaders_match_jax(tmp_path):
     for k in ("images", "boxes", "box_valid", "road"):
         np.testing.assert_array_equal(pb[k], np.asarray(jb[k]), err_msg=k)
     assert len(port.train_loader()) == len(jtask.train_loader())
-    with pytest.raises(NotImplementedError):
-        SB.BBSpatialModel(dict(hparams, cache_dir=str(tmp_path)), device="cpu")._labeled_datasets()
+    # cache_dir: the decode-once sample cache, in the JAX package's layout
+    cached = dict(hparams, cache_dir=str(tmp_path / "cache"))
+    for a, b in zip(SB.BBSpatialModel(cached, device="cpu")._labeled_datasets(),
+                    JSB.BBSpatialModel(cached)._labeled_datasets()):
+        assert type(a).__name__ == type(b).__name__ == "SampleCache" and a.dir == b.dir
+        for k, v in b.dataset[0].items():
+            np.testing.assert_array_equal(a[0][k], v, err_msg=k)

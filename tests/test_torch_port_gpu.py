@@ -183,6 +183,37 @@ def test_adam_steps_lay_out_the_trunk_weights_once_per_step_on_gpu():
 
 
 @pytest.mark.gpu
+def test_trainer_fit_launches_the_trunk_every_step_and_its_checkpoint_loads_on_cpu(tmp_path, monkeypatch):
+    """Trainer.fit of a TINY BasicAE on the card: 3 steps and one validation
+    batch launch B1 4 times (the backward launches none), and the
+    checkpoint it writes loads into a CPU model with the same weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from driving_dirty_tpu_torch.checkpoints import io as ckpt_io
+    from driving_dirty_tpu_torch.checkpoints.convert import load_jax_weights
+    from driving_dirty_tpu_torch.data.synthetic import generate
+    from driving_dirty_tpu_torch.models.basic_ae import BasicAE
+    from driving_dirty_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setenv("DD_NO_TB", "1")
+    generate(str(tmp_path / "data"), scenes=3, samples=4, labeled_scenes=0, seed=0)
+    h = dict(link=str(tmp_path / "data"), hidden_dim=8, latent_dim=8, batch_size=2, samples_per_scene=4,
+             num_unlabeled_scenes=3, output_img_freq=0)
+    model = BasicAE(h, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    launches = K.trunk.launches
+    r = Trainer(max_epochs=1, limit_train_batches=3, limit_val_batches=1, log_every_n_steps=1,
+                default_root_dir=str(tmp_path / "logs"), enable_progress_bar=False).fit(model)
+    torch.cuda.synchronize()
+    assert K.trunk.launches == launches + 4
+    assert np.isfinite(r.best_val_loss)
+    blob = ckpt_io.load(r.last_ckpt_path)
+    assert blob["meta"]["global_step"] == 3 and "torch_generator_cuda" in blob["extra"]
+    cpu = load_jax_weights(BasicAE(blob["hparams"], device="cpu"), blob["params"], blob["state"])
+    for k, v in model.state_dict().items():
+        assert torch.equal(cpu.state_dict()[k], v.cpu()), k
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("size", [800, 148, 157])
 @pytest.mark.parametrize("boxes", ["adversarial", "many"])
 def test_raster_kernel_equals_plain_on_hard_boxes_on_gpu(boxes, size):

@@ -206,7 +206,7 @@ def test_unlabeled_dataset_equals_jax(unlabeled_root, first_dim, raw, monkeypatc
         UnlabeledDataset(unlabeled_root, scenes, "pixel")
 
 
-def test_basic_ae_datasets_split_scenes_as_jax(unlabeled_root):
+def test_basic_ae_datasets_split_scenes_as_jax(unlabeled_root, tmp_path):
     h = dict(AE, link=unlabeled_root, num_unlabeled_scenes=2, samples_per_scene=2, num_workers=1)
     ref = JBasicAE(h)._datasets()
     got = BasicAE(h, device="cpu")._datasets()
@@ -215,8 +215,12 @@ def test_basic_ae_datasets_split_scenes_as_jax(unlabeled_root):
         assert len(a) == len(b) and a.raw_uint8 and a.first_dim == "sample"
     batch, mask = next(iter(BasicAE(h, device="cpu").train_loader()))
     assert batch.shape == (2, 6, 256, 306, 3) and batch.dtype == np.uint8 and mask.all()
-    with pytest.raises(NotImplementedError):
-        BasicAE(dict(h, cache_dir="x"), device="cpu")._datasets()
+    # cache_dir: the decode-once sample cache, in the JAX package's layout
+    h = dict(h, cache_dir=str(tmp_path / "cache"))
+    for a, b in zip(BasicAE(h, device="cpu")._datasets(), JBasicAE(h)._datasets()):
+        assert type(a).__name__ == type(b).__name__ == "SampleCache" and a.dir == b.dir
+        if len(b):  # two scenes: both in the train split
+            np.testing.assert_array_equal(a[0], b.dataset[0])
 
 
 # --- BasicAE loss, gradients, Adam steps ---------------------------------------
