@@ -13,6 +13,16 @@
    cores (mma.sync): bf16 products, and f32 by split TF32 (three TF32
    products a product); the f32 bound counts those three, with the f32
    CUDA-core bound beside it.
+2a. Int8 trunk phase (B1-int8, precision 8): bf16 inputs at [8, 256,
+   1836, 3], [8, 800, 800, 3] and two odd shapes, seeded weights, static
+   scales calibrated on the input itself: the kernel must equal its plain
+   version (trunk_int8_plain, float64 convs) with 0 differing elements; at
+   the JAX package's int8 headline batch [512, 256, 1836, 3] (bench.py:30)
+   the first and last 8 images are held. At the main-path shapes and batch
+   512: the kernel's time by CUDA events over back-to-back launches, the
+   plain version's, bf16 B1's on the same input, the library route's (per
+   layer an im2col, torch._int_mm and the epilogue in torch; empty if
+   _int_mm refuses), the int8 bound beside its bytes bound, and the share.
 2b. Trunk stage-bisection phase (B1'): at f32 and bf16 [8, 256, 1836, 3]
    and at the JAX probe's bf16 [64, 256, 1836, 3], holds every variant of
    the trunk kernel (v0 .. full) against its plain version, checks that
@@ -76,6 +86,16 @@
    output and the class posteriors on the same rois, and the detections
    are held against the same model with the plain kernels patched in. Then
    a BBFasterRCNN: one `predict` and one `host_val_metrics` at precision 32.
+7b. Precision-8 serving phase: the RoadMapBCEv2, MultiTask and
+   FasterRCNNRoadMap of steps 4, 5 and 7, loaded at precision 8: one
+   warm-up request (it calibrates) and 5 timed requests of 8 uint8 scenes
+   under torch.profiler. One calibration, one int8 weight layout, B1-int8
+   once a request and bf16 B1 never; c3 bit-equal and logits, box
+   probabilities and RPN outputs within 2^-5 against the same model with
+   the plain int8 trunk; more than 99% of mask pixels (faster_rcnn_rm: RPN
+   objectness signs) in agreement with the same model at precision 16 on
+   the warm-up batch. Scenes/s, ms/request, device busy and idle share
+   beside the precision-16 windows.
 8. Training phase, precision 32, batches of 8 seeded uint8 scenes: the
    trunk under autograd (kernel forward, plain backward) at
    [8, 256, 1836, 3] against autograd through the plain trunk for x and the
@@ -98,8 +118,13 @@
    uninterrupted run's within RESUME_TOL; cli.roadmap (bce_v2) over the
    basic_ae checkpoint with the encoder frozen in epoch 0 (bit-identical
    through it, one kernel-weight layout in all) and trained in epoch 1 (one
-   layout after each Adam update); cli.run_test on the roadmap checkpoint;
-   cli.roadmap --precision 16 for 2 steps (B1's bf16 kernel, finite losses);
+   layout after each Adam update); cli.run_test on the roadmap checkpoint,
+   at precision 32 and at precision 8 (one calibration, B1-int8 once a
+   batch and for the warm-up, bf16 B1 never, masks in > 99% agreement with
+   precision 32's); cli.roadmap --precision 16 for 2 steps (B1's bf16
+   kernel, finite losses); cli.roadmap --precision 8 for 2 steps and its
+   validation batch (bf16 B1 each time, B1-int8 never, the uncalibrated
+   message printed once);
    then the frozen roadmap_bce epochs through Trainer with device_prefetch's
    staging thread and with each batch pinned on the step's thread, in turns
    (PREFETCH_AB), median step_ms of each.
@@ -119,6 +144,7 @@ of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import io
 import json
 import shutil
 import statistics
@@ -126,7 +152,7 @@ import sys
 import tempfile
 import time
 import warnings
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager, nullcontext, redirect_stdout
 from pathlib import Path
 from unittest import mock
 
@@ -152,12 +178,15 @@ from driving_dirty_tpu_torch.kernels.roialign import (channels_per_thread, roial
                                                       sample_coords)
 from driving_dirty_tpu_torch.kernels.trunk import (VARIANT_STAGES, out_hw, prepare_weights, trunk,
                                                    trunk_plain, trunk_variant, trunk_variant_plain)
+from driving_dirty_tpu_torch.kernels.trunk_int8 import prepare_int8_weights, trunk_int8, trunk_int8_plain
 from driving_dirty_tpu_torch.models.basic_ae import BasicAE
 from driving_dirty_tpu_torch.models.faster_rcnn import BBFasterRCNN, FasterRCNNRoadMap
 from driving_dirty_tpu_torch.models.multitask import MultiTask
+from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin
 from driving_dirty_tpu_torch.models.roadmap import RoadMapBCEv2
 from driving_dirty_tpu_torch.models.spatial_bb import BBSpatialModel, BBSpatialRoadMap
 from driving_dirty_tpu_torch.ops import detection as det
+from driving_dirty_tpu_torch.ops import quant
 from driving_dirty_tpu_torch.ops.maps import raster_geometry
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
 from driving_dirty_tpu_torch.scripts.probe_trunk_variants import device_line, probe_inputs, run_probe
@@ -175,9 +204,9 @@ REQUESTS = 5                         # timed requests per precision, after one w
 HPARAMS = dict(ae_hidden_dim=128, ae_latent_dim=64, pretrained_path=None, batch_size=BATCH)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s by type
-# (float32 on the CUDA cores, tf32 and bfloat16 on the tensor cores)
+# (float32 on the CUDA cores, tf32, bfloat16 and int8 on the tensor cores)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, "tf32": 495e12, torch.bfloat16: 989e12}
+PEAK_OPS = {torch.float32: 67e12, "tf32": 495e12, torch.bfloat16: 989e12, "int8": 1979e12}
 F32_PRODUCTS = 3  # TF32 products per f32 product in the f32 trunk (split TF32)
 TRUNK_DESIGN = {torch.float32: "split-tf32 mma.sync.m16n8k8", torch.bfloat16: "mma.sync.m16n8k16"}
 
@@ -206,6 +235,24 @@ LOGITS_TOL = {32: 1e-4, 16: 2.0 ** -5}
 # more logits near 0 can flip: the JAX package's bar for a lower-precision
 # trunk against the float path is >99% agreement.
 MASK_AGREEMENT = {32: 0.999, 16: 0.99}
+
+# B1-int8 (precision 8): the kernel must equal its plain version with 0
+# differing elements (exact int32 sums, the plain version's f32 epilogue
+# operations one by one) at the main paths' shapes, two odd ones, and the
+# JAX package's int8 headline batch (bench.py:30, BATCH_INT8 = 512), where
+# the plain version (float64 convs) runs in chunks of INT8_CHUNK images and
+# only the first and last chunk are held.
+INT8_SHAPES = ((BATCH, *PANO, 3), (BATCH, *LAYOUT, 3), (2, 17, 35, 3), (3, 37, 101, 3))
+INT8_HEADLINE, INT8_CHUNK = 512, 8
+# Precision-8 serving against the same model at precision 16 on one batch:
+# the JAX package's bar for the int8 trunk against the float path is > 99%
+# of mask pixels (tests/test_quant.py:80-94); for faster_rcnn_rm, which
+# gives boxes, not masks, the sign of the RPN objectness logits.
+P8_AGREEMENT = 0.99
+# Precision-8 logits, probabilities and RPN outputs against the same model
+# with the plain int8 trunk patched in: c3 is bit-equal, and the bf16 heads
+# run the same kernels on it: 2^-5 of the largest value, as at precision 16.
+P8_TOL = 2.0 ** -5
 
 MAX_BB = 100                         # boxes per scene, padded (the dataset's max_bb)
 RASTER_SIZES = (800, 148, 157)       # the main path's size and two that fit no tile
@@ -301,9 +348,10 @@ RESUME_TOL = 1e-6
 PREFETCH_AB = ("staged", "pinned on the step's thread", "pinned on the step's thread", "staged")
 
 
-def cuda_ms(fn, budget_ms: float = 400.0) -> float:
+def cuda_ms(fn, budget_ms: float = 400.0, min_iters: int = 3) -> float:
     """Mean time of fn() on the current stream by CUDA events, after a
-    warm-up, over enough calls to fill about budget_ms."""
+    warm-up, over enough calls (at least min_iters) to fill about
+    budget_ms."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -311,7 +359,7 @@ def cuda_ms(fn, budget_ms: float = 400.0) -> float:
     fn()
     end.record()
     end.synchronize()
-    iters = int(max(3, min(50, budget_ms / max(start.elapsed_time(end), 1e-3))))
+    iters = int(max(min_iters, min(50, budget_ms / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(iters):
         fn()
@@ -494,6 +542,122 @@ def probe_phase() -> list[dict]:
                   f"{'-' if library_ms is None else f'{library_ms:.3f} ms'}, bound {bound['bound_ms']:.4f} ms "
                   f"({bound['bound_by']})", flush=True)
         del x, p
+        torch.cuda.empty_cache()
+    return records
+
+
+def int8_bound(x) -> dict:
+    """Least time of B1-int8 on x: its products as int8 operations at 1,979
+    TOPS (c1's 27 products a position, c2's and c3's 288), against the bf16
+    input read once, the bf16 c3 written once and its weights and epilogue
+    constants (19,456 + 768 B) over 3.35 TB/s."""
+    b, h, w, _ = x.shape
+    ho, wo = out_hw(h, w)
+    macs = b * (h * w * 32 * 27 + h * w * 32 * 288 + ho * wo * 32 * 288)
+    nbytes = (x.numel() + b * ho * wo * 32) * x.element_size() + 19456 + 768
+    t_ops, t_bytes = 2 * macs / PEAK_OPS["int8"], nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes_bound_ms": 1e3 * t_bytes}
+
+
+def int8_library_layers(params, scales):
+    """Per layer, what the library route needs: the int8 weight as a [K, 32]
+    GEMM operand (K = 9 * Cin, zero rows to a multiple of 8), the combined
+    scales, the f32 bias and the stride."""
+    layers = []
+    for i, (w, b, stride) in enumerate(quant.trunk_params(params)):
+        wq, w_inv = quant.quantize_conv_weight(w)
+        bmat = wq.permute(2, 3, 1, 0).reshape(-1, 32)
+        bmat = torch.cat([bmat, bmat.new_zeros((-bmat.shape[0] % 8, 32))])
+        layers.append((bmat, quant.combined_scale(1.0 / scales[i], w_inv), b.float(), stride))
+    return layers
+
+
+def int8_library(x, layers, scales):
+    """The nearest library route, timed only (the port never calls it): per
+    layer an im2col of the int8 input (a copy), torch._int_mm (cuBLASLt's
+    int8 GEMM with int32 sums) and the epilogue in torch."""
+    q = quant.quantize(x, scales[0])
+    for i, (bmat, comb, bias, stride) in enumerate(layers):
+        b, h, w, c = q.shape
+        cols = torch.nn.functional.pad(q, (0, 0, 1, 1, 1, 1)).unfold(1, 3, stride).unfold(2, 3, stride)
+        ho, wo = cols.shape[1:3]
+        a = cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, 9 * c)
+        a = torch.nn.functional.pad(a, (0, bmat.shape[0] - a.shape[1]))
+        y = torch.relu(torch._int_mm(a, bmat).float() * comb + bias).to(x.dtype).reshape(b, ho, wo, 32)
+        if i < 2:
+            q = quant.quantize(y, scales[i + 1])
+    return y
+
+
+def chunked(fn, x, chunk: int = INT8_CHUNK):
+    """fn over x in chunks of `chunk` images (the plain version's float64
+    convs and the library route's im2col do not fit at batch 512)."""
+    return [fn(x[i:i + chunk]) for i in range(0, x.shape[0], chunk)]
+
+
+def int8_phase(gen) -> list[dict]:
+    """B1-int8 at INT8_SHAPES and the headline batch: 0 differing elements
+    against trunk_int8_plain, then (main-path shapes and batch 512) the
+    kernel, the plain version, bf16 B1 on the same input and the library
+    route by CUDA events, beside the bound. Scales are calibrated on the
+    input itself (its first INT8_CHUNK images)."""
+    records = []
+    for shape in INT8_SHAPES + ((INT8_HEADLINE, *PANO, 3),):
+        x, params = trunk_args(gen, torch.bfloat16, shape)
+        scales = quant.calibrate_trunk(params, x[:INT8_CHUNK])
+        label = f"trunk_int8 {list(shape)}"
+        with torch.no_grad():
+            got = trunk_int8(x, *params, scales)
+            if shape[0] > INT8_CHUNK:  # the headline batch: first and last chunk
+                held = [(got[:INT8_CHUNK], trunk_int8_plain(x[:INT8_CHUNK], *params, scales)),
+                        (got[-INT8_CHUNK:], trunk_int8_plain(x[-INT8_CHUNK:], *params, scales))]
+            else:
+                held = [(got, trunk_int8_plain(x, *params, scales))]
+        torch.cuda.synchronize()
+        diff = sum(int((g != r).sum()) for g, r in held)
+        n = sum(r.numel() for _, r in held)
+        if diff or any(g.shape != r.shape for g, r in held) or not all(torch.isfinite(g).all() for g, _ in held):
+            raise RuntimeError(f"{label}: {diff} of {n} elements differ from trunk_int8_plain")
+        scale = max(r.float().abs().max().item() for _, r in held)
+        print(f"{label}: 0 of {n} elements differ from trunk_int8_plain"
+              f"{' (first and last ' + str(INT8_CHUNK) + ' images)' if shape[0] > INT8_CHUNK else ''}, "
+              f"max|plain| {scale:.3e}, scales {scales}", flush=True)
+        if shape not in ((BATCH, *PANO, 3), (BATCH, *LAYOUT, 3), (INT8_HEADLINE, *PANO, 3)):
+            continue
+        reps = 1 if shape[0] > INT8_CHUNK else 3  # calls timed at batch 512 (seconds each)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: trunk_int8(x, *params, scales))
+            bf16_ms = cuda_ms(lambda: trunk(x, *params))
+            plain_ms = cuda_ms(lambda: chunked(lambda v: trunk_int8_plain(v, *params, scales), x), min_iters=reps)
+            library_ms = library_diff = None
+            try:
+                layers = int8_library_layers(params, scales)
+                library_diff = int((int8_library(x[:INT8_CHUNK], layers, scales) != held[0][1]).sum())
+                library_ms = cuda_ms(lambda: chunked(lambda v: int8_library(v, layers, scales), x), min_iters=reps)
+                library_how = "im2col + torch._int_mm + epilogue, per layer"
+            except RuntimeError as e:  # torch._int_mm refusing these shapes
+                library_how = f"none: torch._int_mm refused ({str(e).splitlines()[0][:120]})"
+        bound = int8_bound(x)
+        path = {PANO: "roadmap", LAYOUT: "detection"}[tuple(shape[1:3])] if shape[0] == BATCH else "headline"
+        records.append({
+            "name": "trunk_int8", "route": "cuda", "source": "driving_dirty_tpu_torch/csrc/trunk_int8.cu",
+            "replaces": "driving_dirty_tpu/ops/quant.py:139 (encoder_convs_int8, static scales: XLA int8 "
+                        "convs, no Pallas twin)",
+            "design": "mma.sync.m16n8k32.s8, int8 q1/q2 in shared memory", "path": path,
+            "shape": list(shape), "dtype": "bfloat16", "scales": list(scales),
+            "max_abs_err": 0.0, "differing_elements": diff, "held_elements": n, "max_abs_plain": scale,
+            "ms": ms, "plain_ms": plain_ms, "plain_how": f"float64 convs, in chunks of {INT8_CHUNK}",
+            "bf16_trunk_ms": bf16_ms, "library_ms": library_ms,
+            "library_calls": library_how + (f", in chunks of {INT8_CHUNK}" if library_ms is not None else ""),
+            "library_differing_elements": library_diff,
+            **bound, "roofline_share": bound["bound_ms"] / ms})
+        print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms ({records[-1]['plain_how']}), "
+              f"bf16 B1 {bf16_ms:.4f} ms, library ({library_how}) "
+              f"{'-' if library_ms is None else f'{library_ms:.3f} ms ({library_diff} elements differ from plain)'}, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; bytes {bound['bytes_bound_ms']:.4f} ms), "
+              f"share {bound['bound_ms'] / ms:.3f}", flush=True)
+        del x, params, got, held
         torch.cuda.empty_cache()
     return records
 
@@ -703,12 +867,13 @@ def plain_kernels():
 
 
 def reset_launches() -> None:
-    trunk.launches = raster.launches = roialign.launches = 0
+    trunk.launches = trunk_int8.launches = raster.launches = roialign.launches = 0
 
 
-def expect_launches(what: str, trunks: int, rasters: int, roialigns: int = 0) -> dict:
-    got = {"trunk": trunk.launches, "raster": raster.launches, "roialign": roialign.launches}
-    want = {"trunk": trunks, "raster": rasters, "roialign": roialigns}
+def expect_launches(what: str, trunks: int, rasters: int, roialigns: int = 0, int8s: int = 0) -> dict:
+    got = {"trunk": trunk.launches, "raster": raster.launches, "roialign": roialign.launches,
+           "trunk_int8": trunk_int8.launches}
+    want = {"trunk": trunks, "raster": rasters, "roialign": roialigns, "trunk_int8": int8s}
     if got != want:
         raise RuntimeError(f"{what}: launches {got}, expected {want}")
     return got
@@ -1070,6 +1235,157 @@ def detection_phase(tmp: Path, smi: str) -> dict:
     return out
 
 
+def agreement(a, b) -> float:
+    return (a == b).float().mean().item()
+
+
+def p8_window(model, label: str, requests, smi: str, roialigns_per_request: int = 0) -> tuple:
+    """One warm-up request (it calibrates) and the timed ones under
+    torch.profiler: one calibration, one int8 weight layout, B1-int8 once a
+    request and bf16 B1 never, counted from 0 around the whole run. ->
+    (warm-up outputs, timed outputs, window report, launches)."""
+    Int8TrunkMixin.calibrations = prepare_int8_weights.calls = 0
+    reset_launches()
+    outs, _ = serve(model, requests[:1])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        timed, seconds = serve(model, requests[1:])
+    n = len(requests)
+    launches = expect_launches(f"{label} predict", 0, 0, roialigns_per_request * n, int8s=n)
+    expect(f"{label} calibrations", Int8TrunkMixin.calibrations, 1)
+    expect(f"{label} int8 weight layouts", prepare_int8_weights.calls, 1)
+    print(f"{label}: calibrated once (scales {model._int8_scales}), int8 weights laid out once, "
+          f"launches {launches} over {n} requests", flush=True)
+    rec = window_report(prof, seconds, f"{label} serve", smi)
+    del prof
+    return outs, timed, rec, launches
+
+
+@contextmanager
+def plain_int8():
+    """The plain int8 trunk in place of B1-int8."""
+    with mock.patch("driving_dirty_tpu_torch.nn.autoencoder.trunk_int8", trunk_int8_plain):
+        yield
+
+
+def hold_equal(what: str, got, ref) -> int:
+    n = int((got != ref).sum())
+    print(f"{what}: {n} of {ref.numel()} elements differ from the plain int8 trunk's", flush=True)
+    if n or got.shape != ref.shape:
+        raise RuntimeError(f"{what}: {n} elements differ from the plain int8 trunk's")
+    return n
+
+
+def beside_p16(label: str, rec: dict, p16: dict) -> None:
+    print(f"{label}: precision 8 {rec['scenes_per_s']:.1f} scenes/s, {rec['wall_ms']:.3f} ms/request, device "
+          f"busy {rec['device_busy_ms']:.3f} ms, idle share {rec['idle_share']:.3f}; precision 16 "
+          f"{p16['scenes_per_s']:.1f} scenes/s, {p16['wall_ms']:.3f} ms/request, device busy "
+          f"{p16['device_busy_ms']:.3f} ms, idle share {p16['idle_share']:.3f}", flush=True)
+
+
+def precision8_phase(tmp: Path, smi: str, p16: dict) -> dict:
+    """Precision-8 serving of the full-width RoadMapBCEv2, MultiTask and
+    FasterRCNNRoadMap of the serving, box-family and detection phases
+    (their checkpoints in tmp): one warm-up request (it calibrates) and
+    REQUESTS timed ones of 8 uint8 scenes under torch.profiler (p8_window);
+    c3 bit-equal and the outputs within P8_TOL against the same model with
+    the plain int8 trunk; > P8_AGREEMENT agreement with the same model at
+    precision 16 on the warm-up batch. `p16`: the precision-16 windows of
+    the earlier phases, printed beside."""
+    out = {}
+    torch.backends.cudnn.allow_tf32 = False
+    tf32_line("precision 8 serving")
+
+    # roadmap
+    requests = request_images(np.random.RandomState(SEED), REQUESTS + 1)
+    x = torch.from_numpy(requests[0]).cuda()
+    ref16 = load_roadmap_model(str(tmp / "roadmap_bce.ckpt"), precision=16, device="cuda").predict(x)
+    torch.cuda.empty_cache()
+    model = load_roadmap_model(str(tmp / "roadmap_bce.ckpt"), precision=8, device="cuda")
+    outs, _, rec, launches = p8_window(model, "roadmap precision 8", requests, smi)
+    with torch.no_grad():
+        pano = normalize_images(wide_stitch(x), model.compute_dtype)
+        c3 = model.encoder(pano, c3_only=True, **model.enc_int8_kwargs(False))
+        logits, _ = model(x)
+        with plain_int8():
+            c3_plain = model.encoder(pano, c3_only=True, **model.enc_int8_kwargs(False))
+            logits_plain, _ = model(x)
+    hold_equal("roadmap precision 8 c3", c3, c3_plain)
+    logits_err = hold("roadmap precision 8 logits", logits, logits_plain, P8_TOL)["max_abs_err"]
+    agree = agreement(outs[0].cuda(), ref16)
+    print(f"roadmap precision 8: mask agreement with precision 16 {agree:.6f}", flush=True)
+    if agree <= P8_AGREEMENT:
+        raise RuntimeError(f"roadmap precision 8: mask agreement {agree} with precision 16")
+    beside_p16("roadmap", rec, p16["roadmap"])
+    out["roadmap"] = {"launches": launches, **rec, "logits_err": logits_err, "mask_agreement_p16": agree,
+                      "scales": model._int8_scales}
+    del model, ref16
+    torch.cuda.empty_cache()
+
+    # multitask
+    requests = request_images(np.random.RandomState(SEED + 1), REQUESTS + 1)
+    x = torch.from_numpy(requests[0]).cuda()
+    ref16 = load_task_ckpt(str(tmp / "multitask.ckpt"), precision=16).predict(x)
+    torch.cuda.empty_cache()
+    model = load_task_ckpt(str(tmp / "multitask.ckpt"), precision=8)
+    outs, _, rec, launches = p8_window(model, "multitask precision 8", requests, smi)
+    with torch.no_grad():
+        pano = wide_stitch(normalize_images(x, model.compute_dtype))
+        c3 = model.encoder(pano, c3_only=True, **model.enc_int8_kwargs(False))
+        rm, box = model(x)
+        with plain_int8():
+            c3_plain = model.encoder(pano, c3_only=True, **model.enc_int8_kwargs(False))
+            rm_plain, box_plain = model(x)
+    hold_equal("multitask precision 8 c3", c3, c3_plain)
+    errs = {"logits_err": hold("multitask precision 8 roadmap logits", rm, rm_plain, P8_TOL)["max_abs_err"],
+            "box_err": hold("multitask precision 8 box_occupancy", box, box_plain, P8_TOL)["max_abs_err"]}
+    agree = {"road_mask": agreement(outs[0]["road_mask"].cuda(), ref16["road_mask"]),
+             "rounded box_occupancy": agreement(torch.round(outs[0]["box_occupancy"].cuda()),
+                                                torch.round(ref16["box_occupancy"]))}
+    print(f"multitask precision 8: agreement with precision 16 {agree}", flush=True)
+    if min(agree.values()) <= P8_AGREEMENT:
+        raise RuntimeError(f"multitask precision 8: agreement {agree} with precision 16")
+    beside_p16("multitask", rec, p16["multitask"])
+    out["multitask"] = {"launches": launches, **rec, **errs, "agreement_p16": agree}
+    del model, ref16
+    torch.cuda.empty_cache()
+
+    # faster_rcnn_rm
+    requests = detection_requests(REQUESTS + 1)
+    x, road = (torch.from_numpy(a).cuda() for a in requests[0])
+    m16 = load_detection_task(str(tmp / "faster_rcnn_rm.ckpt"), precision=16)
+    with torch.no_grad():
+        obj16, _ = m16.head.rpn_forward(m16.backbone_features(x, road))
+    dets16 = {k: v.cpu() for k, v in m16.predict(x, road).items()}
+    del m16
+    torch.cuda.empty_cache()
+    model = load_detection_task(str(tmp / "faster_rcnn_rm.ckpt"), precision=8)
+    outs, _, rec, launches = p8_window(model, "faster_rcnn_rm precision 8", requests, smi, roialigns_per_request=1)
+    for o in outs:
+        check_detections(o, "faster_rcnn_rm precision 8")
+    with torch.no_grad():
+        feats = model.backbone_features(x, road)
+        obj, dl = model.head.rpn_forward(feats)
+        with plain_int8():
+            feats_plain = model.backbone_features(x, road)
+            obj_plain, dl_plain = model.head.rpn_forward(feats_plain)
+    hold_equal("faster_rcnn_rm precision 8 c3", feats, feats_plain)
+    errs = {"objectness_err": hold("faster_rcnn_rm precision 8 RPN objectness", obj, obj_plain, P8_TOL)["max_abs_err"],
+            "deltas_err": hold("faster_rcnn_rm precision 8 RPN deltas", dl, dl_plain, P8_TOL)["max_abs_err"]}
+    agree = agreement(obj > 0, obj16 > 0)
+    share = found_share(outs[0], dets16)
+    print(f"faster_rcnn_rm precision 8: RPN objectness sign agreement with precision 16 {agree:.6f}; "
+          f"{share:.4f} of the precision-16 run's {int(dets16['valid'].sum())} valid detections found in the "
+          f"precision-8 run's {int(outs[0]['valid'].sum())}", flush=True)
+    if agree <= P8_AGREEMENT:
+        raise RuntimeError(f"faster_rcnn_rm precision 8: objectness sign agreement {agree} with precision 16")
+    beside_p16("faster_rcnn_rm", rec, p16["faster_rcnn_rm"])
+    out["faster_rcnn_rm"] = {"launches": launches, **rec, **errs, "objectness_agreement_p16": agree,
+                             "detections_found_p16": share}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def trunk_grad_phase(gen) -> dict:
     """The trunk under autograd at [8, 256, 1836, 3] f32: the kernel forward
     with the plain backward (TrunkFunction) against autograd through the
@@ -1251,10 +1567,12 @@ def cli_run(label: str, main, argv: list, smi: str, ranges: tuple = ()) -> tuple
         result = main(argv)
         torch.cuda.synchronize()
     rec = {"seconds": time.perf_counter() - t0, "trunk_launches": trunk.launches,
+           "trunk_int8_launches": trunk_int8.launches,
            "raster_launches": raster.launches, "roialign_launches": roialign.launches,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi,
            "ranges": {name: range_idle(prof, name) for name in ranges}}
-    print(f"{label} ({smi}): {rec['seconds']:.1f} s, B1 launches {rec['trunk_launches']}, peak memory "
+    print(f"{label} ({smi}): {rec['seconds']:.1f} s, B1 launches {rec['trunk_launches']}, B1-int8 launches "
+          f"{rec['trunk_int8_launches']}, peak memory "
           f"{rec['peak_memory_gb']:.2f} GB" + "".join(
               f"; '{name}' {r['ms']:.1f} ms, device busy {r['busy_ms']:.1f} ms, idle share {r['idle_share']:.3f}"
               for name, r in rec["ranges"].items()), flush=True)
@@ -1342,6 +1660,14 @@ def prefetch_ab(tmp: Path, data: Path, ae_ckpt: Path, smi: str) -> list:
     return out
 
 
+class Tee(io.StringIO):
+    """Standard output that is also kept."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
 def expect(label: str, got, want) -> None:
     if got != want:
         raise RuntimeError(f"{label}: {got}, expected {want}")
@@ -1351,8 +1677,8 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
     """The main-path CLIs at the full width of AE_HPARAMS: cli.basic_ae
     (uninterrupted; stopped by --max_steps and resumed), cli.roadmap over its
     encoder (frozen epoch 0, unfrozen epoch 1), cli.run_test on the roadmap
-    checkpoint, and cli.roadmap at precision 16; beside the bare loop's
-    figures of the training phase (`bare`)."""
+    checkpoint at precision 32 and 8, and cli.roadmap at precision 16 and 8;
+    beside the bare loop's figures of the training phase (`bare`)."""
     tf32_line("trainer")
     t_phase = time.perf_counter()
     data = tmp / "cli_data"
@@ -1445,18 +1771,38 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
     del fit, marks, trained
     torch.cuda.empty_cache()
 
-    # 4. run_test scores the labeled scenes with the roadmap checkpoint
-    res, rec = cli_run("cli.run_test", cli_run_test.main,
-                       ["--rm_ckpt_path", rm_ckpt, "--link", str(data), "--num_labeled_scenes", str(CLI_SCENES),
-                        "--samples_per_scene", str(CLI_SAMPLES), "--batch_size", str(BATCH)], smi,
-                       ranges=("run_test predict",))
-    expect("cli.run_test scenes", res["n_scenes"], CLI_SCENES * CLI_SAMPLES)
-    expect("cli.run_test B1 launches", rec["trunk_launches"], CLI_SCENES * CLI_SAMPLES // BATCH + 1)
-    if not 0 <= res["avg_ts"] <= 1:
-        raise RuntimeError(f"cli.run_test: avg_ts {res['avg_ts']}")
-    print(f"cli.run_test ({smi}): {res['scenes_per_sec']:.1f} scenes/s, avg_ts {res['avg_ts']:.4f} over "
-          f"{res['n_scenes']} scenes", flush=True)
-    out["run_test"] = {**rec, **res}
+    # 4. run_test scores the labeled scenes with the roadmap checkpoint,
+    # at precision 32 and then 8 (calibrated on the first batch: B1-int8
+    # once a batch and once for the warm-up, bf16 B1 never)
+    rt_argv = ["--rm_ckpt_path", rm_ckpt, "--link", str(data), "--num_labeled_scenes", str(CLI_SCENES),
+               "--samples_per_scene", str(CLI_SAMPLES), "--batch_size", str(BATCH)]
+    batches = CLI_SCENES * CLI_SAMPLES // BATCH
+    masks = {}
+    for precision in (32, 8):
+        label = "cli.run_test" + ("" if precision == 32 else " --precision 8")
+        masks[precision] = tmp / f"run_test_{precision}.npz"
+        Int8TrunkMixin.calibrations = prepare_int8_weights.calls = 0
+        argv = rt_argv + ["--out", str(masks[precision])] + ([] if precision == 32 else ["--precision", "8"])
+        res, rec = cli_run(label, cli_run_test.main, argv, smi, ranges=("run_test predict",))
+        expect(f"{label} scenes", res["n_scenes"], CLI_SCENES * CLI_SAMPLES)
+        if precision == 32:
+            expect(f"{label} B1 launches", (rec["trunk_launches"], rec["trunk_int8_launches"]), (batches + 1, 0))
+        else:
+            expect(f"{label} B1, B1-int8 launches", (rec["trunk_launches"], rec["trunk_int8_launches"]),
+                   (0, batches + 1))
+            expect(f"{label} calibrations, int8 weight layouts",
+                   (Int8TrunkMixin.calibrations, prepare_int8_weights.calls), (1, 1))
+        if not 0 <= res["avg_ts"] <= 1:
+            raise RuntimeError(f"{label}: avg_ts {res['avg_ts']}")
+        print(f"{label} ({smi}): {res['scenes_per_sec']:.1f} scenes/s, avg_ts {res['avg_ts']:.4f} over "
+              f"{res['n_scenes']} scenes", flush=True)
+        out["run_test" if precision == 32 else "run_test_8"] = {**rec, **res}
+    with np.load(masks[32]) as a, np.load(masks[8]) as b:
+        agree = float((a["masks"] == b["masks"]).mean())
+    print(f"cli.run_test --precision 8: masks agree with precision 32's on {agree:.6f} of pixels", flush=True)
+    if agree <= P8_AGREEMENT:
+        raise RuntimeError(f"cli.run_test --precision 8: mask agreement {agree} with precision 32")
+    out["run_test_8"]["mask_agreement_p32"] = agree
     shutil.rmtree(root_rm)
     torch.cuda.empty_cache()
 
@@ -1479,6 +1825,29 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
     out["roadmap_bce_16"] = fit_measures("cli.roadmap --precision 16", root_16, "roadmap_bce", rec)
     del fit
     shutil.rmtree(root_16)
+    torch.cuda.empty_cache()
+
+    # 5b. roadmap at precision 8: training is bf16 (B1's bf16 kernel in each
+    # step) and, never calibrated, so is validation, after the one message
+    dtypes.clear()
+    root_8 = tmp / "cli_rm8"
+    argv = rm_argv[:rm_argv.index("--precision")] + ["--precision", "8"] + rm_argv[rm_argv.index("--precision") + 2:]
+    for flag, value in (("--max_epochs", "1"), ("--limit_train_batches", "2")):
+        argv[argv.index(flag) + 1] = value
+    RoadMapBCEv2._warned_uncalibrated = False
+    tee = Tee()
+    with mock.patch.object(trunk_module, "_launch", spy_launch), redirect_stdout(tee):
+        fit, rec = cli_run("cli.roadmap --precision 8", cli_roadmap.main,
+                           argv + ["--default_root_dir", str(root_8)], smi)
+    messages = tee.getvalue().count("--precision 8 without calibrated scales")
+    expect("cli.roadmap --precision 8 B1, B1-int8 launches (2 steps, 1 validation batch)",
+           (rec["trunk_launches"], rec["trunk_int8_launches"]), (3, 0))
+    expect("cli.roadmap --precision 8 trunk dtypes", dtypes, [torch.bfloat16] * 3)
+    expect("cli.roadmap --precision 8 uncalibrated messages", messages, 1)
+    out["roadmap_bce_8"] = fit_measures("cli.roadmap --precision 8", root_8, "roadmap_bce", rec)
+    out["roadmap_bce_8"]["uncalibrated_messages"] = messages
+    del fit
+    shutil.rmtree(root_8)
     torch.cuda.empty_cache()
 
     # 6. device_prefetch's staging thread against pinning on the step's thread
@@ -1510,13 +1879,15 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    build.load_libraries(("trunk", "raster", "roialign"))
-    print(f"built trunk.cu, raster.cu and roialign.cu in {time.perf_counter() - t0:.1f} s", flush=True)
+    build.load_libraries(("trunk", "trunk_int8", "raster", "roialign"))
+    print(f"built trunk.cu, trunk_int8.cu, raster.cu and roialign.cu in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for name, log in build.BUILD_LOG.items():
         print(f"ptxas [{name}]:\n{log.strip()}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = kernel_phase(gen)
+    int8_recs = int8_phase(gen)
     variant_recs = probe_phase()
     tf32_line("kernel phases")
     raster_rec = raster_phase()
@@ -1530,6 +1901,9 @@ def main() -> int:
         served = serving_phase(ckpt, smi)
         boxes = box_phase(Path(tmp), smi)
         detection = detection_phase(Path(tmp), smi)
+        p16 = {"roadmap": served[16], "multitask": boxes["multitask_16"],
+               "faster_rcnn_rm": detection["faster_rcnn_rm_16"]}
+        precision8 = precision8_phase(Path(tmp), smi, p16)
         training = training_phase(Path(tmp), smi)
         trainer = trainer_phase(Path(tmp), smi, training)
 
@@ -1544,13 +1918,21 @@ def main() -> int:
     for r in roialign_recs:
         precision = 32 if r["dtype"] == "float32" else 16
         r["launches"] = detection[f"faster_rcnn_rm_{precision}"]["predict_launches"]["roialign"]
-    records += roialign_recs + variant_recs
+    for r in int8_recs:
+        served8 = precision8["faster_rcnn_rm" if r["path"] == "detection" else "roadmap"]
+        r["launches"] = served8["launches"]["trunk_int8"]
+        r["launches_on"] = ("faster_rcnn_rm" if r["path"] == "detection" else "roadmap") + " precision-8 serving"
+        if r["path"] == "roadmap":
+            r["cli_launches"] = {"run_test_8": trainer["run_test_8"]["trunk_int8_launches"],
+                                 "roadmap_bce_8": trainer["roadmap_bce_8"]["trunk_int8_launches"]}
+    records += int8_recs + roialign_recs + variant_recs
     f32_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "float32")
     f32_path["cli_launches"] = {k: trainer[k]["trunk_launches"] for k in ("basic_ae", "roadmap_bce", "run_test")}
     bf16_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "bfloat16")
-    bf16_path["cli_launches"] = {"roadmap_bce_16": trainer["roadmap_bce_16"]["trunk_launches"]}
+    bf16_path["cli_launches"] = {"roadmap_bce_16": trainer["roadmap_bce_16"]["trunk_launches"],
+                                 "roadmap_bce_8": trainer["roadmap_bce_8"]["trunk_launches"]}
     print(json.dumps({"serving": served, "box_family": boxes, "detection": detection,
-                      "training": training, "trainer": trainer}, default=str))
+                      "precision8": precision8, "training": training, "trainer": trainer}, default=str))
     print(smi)
     print(json.dumps({"kernels": records}))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)

@@ -13,7 +13,10 @@ here:
   --remat         accepted; the port's trunk always recomputes in its
                   backward (kernels/trunk.py:TrunkFunction).
   --distributed_backend   accepted and ignored, as in the JAX package.
-  --precision 8   raises NotImplementedError (int8 is ROADMAP A.8).
+  --precision 8   trains in bf16, as 16 does (int8 is inference-only);
+                  validation runs the trunk in bf16 after a one-time
+                  message, since the trainer never calibrates the int8
+                  scales (as in the JAX package).
 
 The JAX package's XLA compilation cache and platform-environment handling
 have no counterpart here.
@@ -42,7 +45,8 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
     g.add_argument("--model_parallel", type=int, default=1,
                    help="size of the 'model' mesh axis (not ported yet; 1)")
     g.add_argument("--precision", type=int, default=32, choices=[8, 16, 32],
-                   help="16 -> bfloat16 compute where supported")
+                   help="16 -> bfloat16 compute where supported; 8 -> bfloat16 training "
+                        "and the int8 trunk at calibrated inference")
     g.add_argument("--resume_from_checkpoint", type=str, default=None)
     g.add_argument("--default_root_dir", type=str, default="logs")
     g.add_argument("--version", type=int, default=None,

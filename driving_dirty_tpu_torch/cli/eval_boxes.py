@@ -7,7 +7,10 @@ scenes, turn the pixel AABBs back into meter-space corner boxes
     python -m driving_dirty_tpu_torch.cli.eval_boxes --ckpt_path <ckpt> \
         --link <data> [--batch_size 2] [--device cuda]
 
-Takes the framework's .ckpt files (either package writes them).
+Takes the framework's .ckpt files (either package writes them). With
+--precision 8 the int8 trunk's static scales are calibrated on the
+loader's first batch (its road maps fused for faster_rcnn_rm) before the
+timed loop.
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ def main(argv=None):
     ap.add_argument("--score_thresh", type=float, default=0.5,
                     help="minimum detection score to count a box")
     ap.add_argument("--precision", type=int, default=None, choices=[8, 16, 32],
-                    help="override checkpoint precision (8 is not ported yet)")
+                    help="override checkpoint precision; 8 = the static-scale int8 trunk "
+                         "(calibrated on the first batch)")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
 
@@ -53,6 +57,12 @@ def main(argv=None):
                         LABELED_SCENES[: args.num_labeled_scenes],
                         samples_per_scene=args.samples_per_scene, raw_uint8=True)
     loader = Loader(ds, args.batch_size, shuffle=False, num_workers=4)
+
+    if model.int8_trunk:
+        first, _ = next(iter(loader))
+        road = first.get("road")
+        model.calibrate_int8(torch.from_numpy(first["images"]).to(device),
+                             None if road is None else torch.from_numpy(road).to(device))
 
     scores, n_scenes = [], 0
     t0 = time.perf_counter()

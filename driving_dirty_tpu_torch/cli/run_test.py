@@ -8,7 +8,9 @@ truth, and report scenes/sec.
 
 Takes the framework's .ckpt files (either package writes them) and the
 reference's PyTorch Lightning rm.ckpt files, imported in memory through
-checkpoints/torch_import.py.
+checkpoints/torch_import.py. With --precision 8 the int8 trunk's static
+scales are calibrated on the loader's first batch before the warm-up and
+the timed loop (kernel B1-int8 on the card).
 """
 from __future__ import annotations
 
@@ -66,7 +68,8 @@ def main(argv=None):
     ap.add_argument("--limit_batches", type=int, default=None)
     ap.add_argument("--out", type=str, default=None, help="npz path for predicted masks")
     ap.add_argument("--precision", type=int, default=None, choices=[8, 16, 32],
-                    help="override checkpoint precision (8 is not ported yet)")
+                    help="override checkpoint precision; 8 = the static-scale int8 trunk "
+                         "(calibrated on the first batch)")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
 
@@ -81,6 +84,12 @@ def main(argv=None):
         raw_uint8=True,
     )
     loader = Loader(ds, args.batch_size, shuffle=False, num_workers=4)
+
+    # int8: calibrate the static activation scales on the first real batch,
+    # before the warm-up's zeros could
+    if model.int8_trunk:
+        first, _ = next(iter(loader))
+        model.calibrate_int8(torch.from_numpy(first["images"]).to(device))
 
     # warm-up outside the timed loop (kernel build and load, allocator)
     model.predict(torch.zeros((args.batch_size, 6, 256, 306, 3), device=device))

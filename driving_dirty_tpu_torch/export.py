@@ -27,8 +27,8 @@ def load_task_ckpt(ckpt_path, precision=None, classes=None, device=None, default
     """Framework .ckpt -> the model its `meta["task"]` names (`default_task`
     when it names none), one of `classes` (name -> class; default every box
     and detection task), on `device` (default cuda), in eval mode with no
-    gradients. `precision` overrides the checkpoint's (32 or 16; 8 raises
-    NotImplementedError)."""
+    gradients. `precision` overrides the checkpoint's (32, 16 or 8; at 8 the
+    model's `predict` calibrates its int8 trunk on its first batch)."""
     classes = TASKS if classes is None else classes
     device = resolve_device(device)
     blob = ckpt_io.load(ckpt_path, opt_state=False)

@@ -152,8 +152,8 @@ prepare_weights.calls = 0
 _PREPARED: dict = {}
 
 
-def kernel_weights(ws, bs, dtype):
-    """prepare_weights(ws, bs, dtype), cached per (weight tensors, dtype).
+def cached_layout(cache: dict, ts, key, build):
+    """build(), cached in `cache` per (the tensors ts, key).
 
     An entry is used again only for the same live tensors with the same
     data_ptr and _version, so load_state_dict, an in-place update or a new
@@ -164,22 +164,27 @@ def kernel_weights(ws, bs, dtype):
     call builds the layout anew and a warning says so. To keep the cache,
     create or load the weights outside inference mode and serve under
     torch.no_grad or torch.inference_mode."""
-    ts = (*ws, *bs)
     if any(t.is_inference() for t in ts):
         warnings.warn("trunk weights are inference tensors, which keep no version; their "
                       "kernel layout is built on every call, not cached. Create or load the "
-                      "weights outside torch.inference_mode to cache it.", stacklevel=2)
-        return prepare_weights(ws, bs, dtype)
-    key = (tuple(id(t) for t in ts), dtype)
+                      "weights outside torch.inference_mode to cache it.", stacklevel=3)
+        return build()
+    full_key = (tuple(id(t) for t in ts), key)
     stamp = tuple((t.data_ptr(), t._version) for t in ts)
-    hit = _PREPARED.get(key)
+    hit = cache.get(full_key)
     if hit is not None and hit[1] == stamp and all(r() is t for r, t in zip(hit[0], ts)):
         return hit[2]
-    for k in [k for k, v in _PREPARED.items() if any(r() is None for r in v[0])]:
-        del _PREPARED[k]
-    prepared = prepare_weights(ws, bs, dtype)
-    _PREPARED[key] = (tuple(weakref.ref(t) for t in ts), stamp, prepared)
-    return prepared
+    for k in [k for k, v in cache.items() if any(r() is None for r in v[0])]:
+        del cache[k]
+    built = build()
+    cache[full_key] = (tuple(weakref.ref(t) for t in ts), stamp, built)
+    return built
+
+
+def kernel_weights(ws, bs, dtype):
+    """prepare_weights(ws, bs, dtype), cached per (weight tensors, dtype)
+    (`cached_layout`)."""
+    return cached_layout(_PREPARED, (*ws, *bs), dtype, lambda: prepare_weights(ws, bs, dtype))
 
 
 @functools.cache
@@ -191,7 +196,9 @@ def _entry():
     return entry
 
 
-def _check(x, ws, bs):
+def check_inputs(x, ws, bs):
+    """Raise unless x, the OIHW weights ws and the biases bs are what the
+    trunk kernels take (the dtype aside for B1-int8, which checks its own)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"trunk kernel takes float32 or bfloat16 input, got {x.dtype}")
     if x.dim() != 4 or x.shape[-1] != 3:
@@ -219,7 +226,7 @@ def _launch(x, params, stages):
     if x.device.type != "cuda":
         raise ValueError(f"trunk runs on cuda or cpu tensors, got {x.device}")
     ws, bs = params[0::2], params[1::2]
-    _check(x, ws, bs)
+    check_inputs(x, ws, bs)
     b, h, w, _ = x.shape
     out = torch.empty((b, *out_hw(h, w), C), dtype=x.dtype, device=x.device)
     if out.numel() == 0:

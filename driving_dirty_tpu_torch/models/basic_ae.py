@@ -16,7 +16,9 @@ in jax.checkpoint). Downstream models take only the encoder
 (`build_encoder`, models/pretrained.py). `cache_dir` wraps the datasets in
 the decode-once sample cache (data/cache.py); `add_model_specific_args`
 gives the CLI's flags, whose defaults (hidden 256) differ from the
-constructor's.
+constructor's. At precision 8 BasicAE trains in bf16 and, never
+calibrated, evaluates in bf16 after a one-time message, as the JAX
+package's does (models/precision.py:Int8TrunkMixin).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from driving_dirty_tpu_torch.data.dataset import (
     scene_split,
 )
 from driving_dirty_tpu_torch.data.pipeline import Loader
-from driving_dirty_tpu_torch.models.precision import compute_dtype
+from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin, compute_dtype
 from driving_dirty_tpu_torch.nn.autoencoder import Decoder, Encoder
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, six_to_one_task
 from driving_dirty_tpu_torch.train.task import Task, hp
@@ -67,7 +69,7 @@ class AEConfig(Task):
                        device=device, generator=generator)
 
 
-class BasicAE(AEConfig, nn.Module):
+class BasicAE(Int8TrunkMixin, AEConfig, nn.Module):
     """The trainable pretext model: encoder and decoder on `device`
     (default cuda), initialized from `generator`."""
 
@@ -88,7 +90,8 @@ class BasicAE(AEConfig, nn.Module):
         dtype = compute_dtype(hp(self.hparams, "precision", 32))
         x_masked, y = six_to_one_task(images, view, generator=generator,
                                       num_maskable=6 if self.mask_all_six else 5)
-        z = self.encoder(normalize_images(x_masked, dtype), generator=generator)
+        z = self.encoder(normalize_images(x_masked, dtype), generator=generator,
+                         **self.enc_int8_kwargs(self.training))
         return self.decoder(z, generator), normalize_images(y, dtype)
 
     def loss(self, batch, *, train: bool, view=None, generator=None):

@@ -13,8 +13,11 @@
 Images are [b, 6, H, W, 3] NHWC (uint8 or float), road [b, S, S] with S the
 layout size (800). Box targets: meter corners [.., 2, 4] -> pixel AABBs
 (ops/coords.py:corners_to_aabb); labels the raw category ids plus
-`label_offset`. Training (losses, samplers, freezing, the exact-top-k
-warm-up) comes with detection training; precision 8 and `fast_conv` raise.
+`label_offset`. At precision 8 `predict` calibrates the int8 trunk on its
+first batch, on the trunk's own input (the layout image, fused with the
+road map for faster_rcnn_rm; models/precision.py:Int8TrunkMixin). Training
+(losses, samplers, freezing, the exact-top-k warm-up) comes with detection
+training; `fast_conv` raises.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from driving_dirty_tpu_torch.core import layers as L
 from driving_dirty_tpu_torch.core.device import resolve_device
 from driving_dirty_tpu_torch.metrics.threat import ats_bounding_boxes
 from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin
-from driving_dirty_tpu_torch.models.precision import compute_dtype
+from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin, compute_dtype
 from driving_dirty_tpu_torch.models.pretrained import init_backbone, load_pretrained_ae
 from driving_dirty_tpu_torch.nn.detection import DetectionConfig, FasterRCNNHead
 from driving_dirty_tpu_torch.ops.coords import aabb_to_corners, corners_to_aabb
@@ -47,7 +50,7 @@ def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-class BBFasterRCNN(LabeledDataMixin, Task, nn.Module):
+class BBFasterRCNN(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
     name = "faster_rcnn"
     uses_roadmap = False
     # images per forward pass in predict: bounds the NMS temporaries (a
@@ -98,8 +101,19 @@ class BBFasterRCNN(LabeledDataMixin, Task, nn.Module):
         return x.contiguous()
 
     def backbone_features(self, images, road=None):
-        """-> c3 features [b, S/2, S/2, 32] (kernel B1 on the card)."""
-        return self.encoder(self._backbone_input(images, road), c3_only=True)
+        """-> c3 features [b, S/2, S/2, 32] (kernel B1 on the card; B1-int8 in
+        eval mode at precision 8 once calibrated)."""
+        return self.encoder(self._backbone_input(images, road), c3_only=True,
+                            **self.enc_int8_kwargs(self.training))
+
+    @torch.no_grad()
+    def calibrate_int8(self, images, road=None):
+        """One-time int8 activation-scale calibration (precision 8 only), on
+        `_backbone_input`: the road-map fusion of faster_rcnn_rm included."""
+        if not self.int8_trunk or self._int8_scales is not None:
+            return
+        road = road if self.uses_roadmap else None
+        self.calibrate_int8_on(self.encoder, self._backbone_input(images, road))
 
     def _targets(self, batch):
         """-> (gt boxes [b, G, 4] pixel xyxy, their validity, labels)."""
@@ -116,9 +130,17 @@ class BBFasterRCNN(LabeledDataMixin, Task, nn.Module):
     def predict(self, images, road=None):
         """-> detections {"boxes" [b, D, 4] pixel xyxy, "scores" [b, D],
         "labels" [b, D] (raw category ids), "valid" [b, D]}. Eval mode; the
-        road map is used by the rm variant only."""
-        self.eval()
+        road map is used by the rm variant only. At precision 8 it first
+        calibrates the int8 scales on the whole batch (`calibrate_int8`)."""
         road = road if self.uses_roadmap else None
+        self.calibrate_int8(images, road)
+        return self._predict(images, road)
+
+    def _predict(self, images, road):
+        """`predict` without the calibration: validation runs the trunk as
+        the model stands (bf16 with the one-time message while uncalibrated
+        at precision 8, as the JAX trainer's validation does)."""
+        self.eval()
         b, ch = images.shape[0], self.predict_chunk
         if b <= ch:
             return self._detect(images, road)
@@ -144,7 +166,7 @@ class BBFasterRCNN(LabeledDataMixin, Task, nn.Module):
         batch. Empty when val_ats is off."""
         if not hp(self.hparams, "val_ats", True):
             return {}
-        dets = self.predict(batch["images"], batch.get("road"))
+        dets = self._predict(batch["images"], batch.get("road") if self.uses_roadmap else None)
         boxes_m = aabb_to_corners(_np(dets["boxes"]))  # [b, D, 2, 4]
         thr = hp(self.hparams, "val_ats_score_thresh", self.cfg.box_score_thresh)
         valid = _np(dets["valid"] & (dets["scores"] > thr))  # in the scores' dtype

@@ -5,8 +5,9 @@ config 5).
 The encoder runs once per batch (`with_c3`): its latent feeds the roadmap
 head (Linear latent -> 640000, 800x800 logits), its c3 feature map feeds
 the spatial box pipeline (SpatialMappingCNN + BoxesMergingCNN). Box targets
-are rasterized by kernel B2. Freezing and the sharding rules come with
-training.
+are rasterized by kernel B2. At precision 8 `predict` calibrates the
+int8 trunk on its first batch (models/precision.py:Int8TrunkMixin).
+Freezing and the sharding rules come with training.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from driving_dirty_tpu_torch.core import layers as L
 from driving_dirty_tpu_torch.core.device import resolve_device
 from driving_dirty_tpu_torch.metrics.threat import ts_road_map
 from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin
-from driving_dirty_tpu_torch.models.precision import compute_dtype
+from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin, compute_dtype
 from driving_dirty_tpu_torch.models.pretrained import init_backbone, load_pretrained_ae
 from driving_dirty_tpu_torch.models.roadmap import MAP_PIXELS, RoadMapBCE
 from driving_dirty_tpu_torch.models.spatial_bb import _bce_probs, box_targets
@@ -26,7 +27,7 @@ from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
 from driving_dirty_tpu_torch.train.task import Task, hp
 
 
-class MultiTask(LabeledDataMixin, Task, nn.Module):
+class MultiTask(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
     name = "multitask"
 
     def __init__(self, hparams=None, *, device=None, generator=None):
@@ -52,7 +53,8 @@ class MultiTask(LabeledDataMixin, Task, nn.Module):
         """-> (rm_logits [b, 800, 800], box_probs [b, R, R]), both f32, from one
         encoder pass (the conv trunk runs once)."""
         images = normalize_images(images, self.compute_dtype)
-        z, ssr = self.encoder(wide_stitch(images), with_c3=True)
+        z, ssr = self.encoder(wide_stitch(images), with_c3=True,
+                              **self.enc_int8_kwargs(self.training))
         rm_logits = self.rm_head(z).reshape(z.shape[0], 800, 800).float()
         # the box head runs in the compute dtype; only its output is promoted
         spatial = self.space_map_cnn(images)
@@ -60,10 +62,20 @@ class MultiTask(LabeledDataMixin, Task, nn.Module):
         return rm_logits, box_probs
 
     @torch.no_grad()
+    def calibrate_int8(self, images):
+        """One-time int8 activation-scale calibration (precision 8 only); the
+        trunk input is the stitched panorama."""
+        if not self.int8_trunk or self._int8_scales is not None:
+            return
+        self.calibrate_int8_on(self.encoder, wide_stitch(normalize_images(images, self.compute_dtype)))
+
+    @torch.no_grad()
     def predict(self, images):
         """Inference entry: -> {"road_mask": [b, 800, 800] binary f32 (logits
-        > 0), "box_occupancy": [b, R, R] probabilities}, one encoder pass."""
+        > 0), "box_occupancy": [b, R, R] probabilities}, one encoder pass;
+        calibrates the int8 scales first at precision 8."""
         self.eval()
+        self.calibrate_int8(images)
         rm_logits, box_probs = self(images)
         return {"road_mask": (rm_logits > 0).float(), "box_occupancy": box_probs}
 

@@ -15,6 +15,10 @@ dropout drawn from `generator`. `freeze_mask` (applied by the Task's
 roadmap_bce unless the hparam says otherwise). roadmap_bce lowers its LR on
 a plateau (patience 10, factor 0.1). The labeled loaders come from
 models/labeled_data.py, the CLI flags from `add_model_specific_args`.
+
+At precision 8 the encoder trunk runs in static-scale int8 at inference
+(models/precision.py:Int8TrunkMixin): `predict` calibrates the scales on
+its first batch (`calibrate_int8`), and later calls launch kernel B1-int8.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from driving_dirty_tpu_torch.core import layers as L
 from driving_dirty_tpu_torch.core.device import resolve_device
 from driving_dirty_tpu_torch.metrics.threat import ts_road_map
 from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin, add_labeled_data_args
-from driving_dirty_tpu_torch.models.precision import compute_dtype
+from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin, compute_dtype
 from driving_dirty_tpu_torch.models.pretrained import init_backbone, load_pretrained_ae
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
 from driving_dirty_tpu_torch.train.task import Task, hp
@@ -34,7 +38,7 @@ from driving_dirty_tpu_torch.train.task import Task, hp
 MAP_PIXELS = 800 * 800
 
 
-class RoadMapBase(LabeledDataMixin, Task, nn.Module):
+class RoadMapBase(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
     name = "roadmap_base"
     unfreeze_default = 30  # hard-coded in mse / bce-v1 (roadmap_pretrain_ae.py:131)
 
@@ -57,17 +61,29 @@ class RoadMapBase(LabeledDataMixin, Task, nn.Module):
 
         Stitching runs before the /255 (it only moves pixels), so the copy
         moves uint8 bytes. In training mode the encoder's dropout draws from
-        `generator`."""
+        `generator`; in eval mode at precision 8 the trunk runs int8 once
+        calibrated."""
         x = normalize_images(wide_stitch(images), self.compute_dtype)
-        z = self.encoder(x, generator=generator)
+        z = self.encoder(x, generator=generator, **self.enc_int8_kwargs(self.training))
         logits = self.fc1(z).reshape(z.shape[0], 800, 800).float()  # losses/metrics in f32
         return logits, torch.sigmoid(logits)
 
     @torch.no_grad()
+    def calibrate_int8(self, images):
+        """One-time int8 activation-scale calibration (precision 8 only), on
+        the stitched panorama exactly as `forward` builds it."""
+        if not self.int8_trunk or self._int8_scales is not None:
+            return
+        x = normalize_images(wide_stitch(images), self.compute_dtype)
+        self.calibrate_int8_on(self.encoder, x)
+
+    @torch.no_grad()
     def predict(self, images):
         """Inference entry: -> binary [b, 800, 800] f32 mask. Thresholds raw
-        logits at 0 (== sigmoid > 0.5). Runs in eval mode."""
+        logits at 0 (== sigmoid > 0.5). Runs in eval mode; at precision 8 it
+        calibrates the int8 scales on its first call."""
         self.eval()
+        self.calibrate_int8(images)
         logits, _ = self(images)
         return (logits > 0).float()
 

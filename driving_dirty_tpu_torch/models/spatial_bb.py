@@ -10,7 +10,9 @@
 
 R is the geometry's raster size (800 at "reference"). Images are
 [b, 6, H, W, 3] NHWC (uint8 or float), boxes [b, max_bb, 2, 4] meters with
-box_valid [b, max_bb], road [b, 800, 800]. Freezing, image logging and the
+box_valid [b, max_bb], road [b, 800, 800]. At precision 8 `predict`
+calibrates the int8 trunk on its first batch
+(models/precision.py:Int8TrunkMixin). Freezing, image logging and the
 sharding rules come with training.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ from driving_dirty_tpu_torch.core.device import resolve_device
 from driving_dirty_tpu_torch.kernels.raster import raster
 from driving_dirty_tpu_torch.metrics.threat import ts_road_map
 from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin
-from driving_dirty_tpu_torch.models.precision import compute_dtype
+from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin, compute_dtype
 from driving_dirty_tpu_torch.models.pretrained import init_backbone, load_pretrained_ae
 from driving_dirty_tpu_torch.nn.spatial import (
     BoxesMergingCNN,
@@ -46,7 +48,7 @@ def box_targets(batch, size: int):
     return raster(batch["boxes"], batch["box_valid"], size)
 
 
-class BBSpatialModel(LabeledDataMixin, Task, nn.Module):
+class BBSpatialModel(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
     name = "spatial_bb"
     merge_cls = BoxesMergingCNN
     uses_roadmap = False
@@ -73,7 +75,7 @@ class BBSpatialModel(LabeledDataMixin, Task, nn.Module):
         [b, R, R] f32 (losses and metrics in f32)."""
         images = normalize_images(images, self.compute_dtype)
         spatial = self.space_map_cnn(images)
-        ssr = self.encoder(wide_stitch(images), c3_only=True)
+        ssr = self.encoder(wide_stitch(images), c3_only=True, **self.enc_int8_kwargs(self.training))
         if self.uses_roadmap:
             probs = self.box_merge(ssr, spatial, road[..., None].to(spatial.dtype))
         else:
@@ -81,10 +83,20 @@ class BBSpatialModel(LabeledDataMixin, Task, nn.Module):
         return probs[..., 0].float()
 
     @torch.no_grad()
+    def calibrate_int8(self, images):
+        """One-time int8 activation-scale calibration (precision 8 only); the
+        trunk input is the stitched panorama."""
+        if not self.int8_trunk or self._int8_scales is not None:
+            return
+        self.calibrate_int8_on(self.encoder, wide_stitch(normalize_images(images, self.compute_dtype)))
+
+    @torch.no_grad()
     def predict(self, images, road=None):
         """Inference entry: -> occupancy probabilities [b, R, R] (not a
-        thresholded mask: callers pick their operating point). Eval mode."""
+        thresholded mask: callers pick their operating point). Eval mode;
+        calibrates the int8 scales first at precision 8."""
         self.eval()
+        self.calibrate_int8(images)
         return self(images, road if self.uses_roadmap else None)
 
     def _targets(self, batch):

@@ -6,7 +6,9 @@ components.py:6-52): conv trunk c1 -> c2 -> c3, flatten in NCHW order,
 max-pool(4) over the flat vector, two DenseBlocks, Linear to the latent.
 The trunk is kernels/trunk.py: the CUDA kernel on a CUDA tensor (under
 autograd its backward recomputes the plain trunk), its plain version on a
-CPU tensor. The Decoder mirrors the reference's components.py:55-93.
+CPU tensor; with `int8=True` (precision 8 at inference) it is
+kernels/trunk_int8.py, kernel B1-int8 with the caller's static scales. The
+Decoder mirrors the reference's components.py:55-93.
 
 In training mode the DenseBlocks' dropout draws from the `generator` their
 forward is given (torch's default generator when None); `drop_p` sets its
@@ -20,6 +22,7 @@ from torch import nn
 from driving_dirty_tpu_torch.core import layers as L
 from driving_dirty_tpu_torch.kernels.trunk import C as TRUNK_C
 from driving_dirty_tpu_torch.kernels.trunk import out_hw, trunk
+from driving_dirty_tpu_torch.kernels.trunk_int8 import trunk_int8
 
 
 class DenseBlock(nn.Module):
@@ -40,7 +43,9 @@ class DenseBlock(nn.Module):
 class Encoder(nn.Module):
     """[b, H, W, C] NHWC -> latent [b, latent_dim]; `c3_only` returns the c3
     feature map [b, (H+1)//2, (W+1)//2, 32] (the backbone tap), `with_c3`
-    returns (z, c3) from one trunk pass.
+    returns (z, c3) from one trunk pass. `int8=True` runs the trunk in
+    static-scale int8 with `int8_scales` (ops/quant.py:calibrate_trunk;
+    None is the dynamic absmax, CPU tensors only), inference only.
 
     `dense=False` builds the conv trunk alone (c1, c2, c3), for backbones
     that only tap c3: the dense latent path is then absent (at full width
@@ -75,12 +80,17 @@ class Encoder(nn.Module):
         h, w = self.c3_shape()
         return TRUNK_C * h * w // self.pooling_size
 
+    def trunk_params(self):
+        """(w1, b1, w2, b2, w3, b3) of the conv trunk, OIHW."""
+        return (self.c1.weight, self.c1.bias, self.c2.weight, self.c2.bias,
+                self.c3.weight, self.c3.bias)
+
     def forward(self, x, *, c3_only: bool = False, with_c3: bool = False,
-                int8: bool = False, generator=None):
+                int8: bool = False, int8_scales=None, generator=None):
         if int8:
-            raise NotImplementedError("the int8 trunk (precision 8) is not ported yet")
-        x = trunk(x, self.c1.weight, self.c1.bias, self.c2.weight, self.c2.bias,
-                  self.c3.weight, self.c3.bias)
+            x = trunk_int8(x, *self.trunk_params(), int8_scales)
+        else:
+            x = trunk(x, *self.trunk_params())
         if c3_only:
             return x
         if not self.dense:

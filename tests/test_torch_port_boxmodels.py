@@ -231,8 +231,12 @@ def test_load_task_ckpt_end_to_end_matches_jax(tmp_path):
 
     with pytest.raises(ValueError, match="not one of"):
         export.load_task_ckpt(str(ckpt), classes={"spatial_bb": SB.BBSpatialModel}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        export.load_task_ckpt(str(ckpt), precision=8, device="cpu")
+    p8 = export.load_task_ckpt(str(ckpt), precision=8, device="cpu")
+    assert isinstance(p8, MT.MultiTask) and p8.int8_trunk and p8._int8_scales is None
+    pred8 = p8.predict(tb["images"])  # calibrates on this batch, then int8
+    assert p8._int8_scales is not None and pred8["road_mask"].shape == pred["road_mask"].shape
+    assert (pred8["road_mask"] == pred["road_mask"]).float().mean() > 0.99
+    assert torch.isfinite(pred8["box_occupancy"]).all()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             export.load_task_ckpt(str(ckpt))

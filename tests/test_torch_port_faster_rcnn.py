@@ -203,8 +203,8 @@ def test_predict_chunks_pad_the_tail_and_unported_options_raise():
     for k in whole:
         assert chunked[k].shape[0] == 3
         np.testing.assert_allclose(_np(chunked[k]), _np(whole[k]), rtol=0, atol=2e-5, err_msg=k)
-    with pytest.raises(NotImplementedError):
-        TF.BBFasterRCNN(dict(TINY, precision=8), device="cpu")
+    p8 = TF.BBFasterRCNN(dict(TINY, precision=8), device="cpu")  # precision 8 is ported
+    assert p8.int8_trunk and p8.compute_dtype is torch.bfloat16
     with pytest.raises(NotImplementedError):
         TF.BBFasterRCNN(dict(TINY, fast_conv=True), device="cpu")
 

@@ -21,6 +21,9 @@ must give the gradients of autograd through the plain trunk within 1e-4 of
 max|plain| for a fixed cotangent: both run the same backward on the same
 inputs, and only cuDNN's choice of reduction order can differ between the
 calls (sums of up to 3.7M terms, a few 1e-6 of the largest).
+The int8 trunk kernel (B1-int8) must equal its plain version exactly: 0
+differing elements, since its int32 sums are exact and its epilogue runs
+the plain version's f32 operations one by one (no fma contraction).
 RoIAlign within 4e-6 of max|plain| in either feature dtype and at either
 width (16 B of channels a thread, or one channel a thread for features
 whose channels or address do not allow 16-B loads): both read the same
@@ -40,6 +43,8 @@ from driving_dirty_tpu_torch.data.boxes import adversarial_boxes, box_scenes, de
 from driving_dirty_tpu_torch.kernels import raster as R
 from driving_dirty_tpu_torch.kernels import roialign as RA
 from driving_dirty_tpu_torch.kernels import trunk as K
+from driving_dirty_tpu_torch.kernels import trunk_int8 as K8
+from driving_dirty_tpu_torch.ops import quant as Q
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": 2e-4, "bfloat16": 2.0 ** -6}
@@ -357,6 +362,102 @@ def test_roialign_kernel_rejects_what_it_does_not_take():
         RA.roialign(feats, rois, output_size=128, sampling_ratio=4)
     with pytest.raises(NotImplementedError):
         RA.roialign(feats.requires_grad_(), rois)
+
+
+def _int8_inputs(shape, seed=0):
+    """bf16 input, f32 trunk weights on the card and static scales
+    calibrated on the input itself."""
+    x, ws = _trunk_inputs(shape, "bfloat16")
+    return x, ws, Q.calibrate_trunk(ws, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (1, 17, 35, 3),    # batch 1, odd H and W: partial tiles
+    (3, 37, 101, 3),   # c3 19 x 51
+    (40, 64, 96, 3),   # more tiles than one wave of the persistent grid
+    (2, 256, 1836, 3),  # the panorama
+])
+def test_trunk_int8_kernel_equals_plain_on_gpu(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, ws, scales = _int8_inputs(shape)
+    launches = K8.trunk_int8.launches
+    with torch.no_grad():
+        got = K8.trunk_int8(x, *ws, scales)
+        ref = K8.trunk_int8_plain(x, *ws, scales)
+    torch.cuda.synchronize()
+    assert K8.trunk_int8.launches == launches + 1
+    assert got.dtype == ref.dtype == torch.bfloat16
+    assert got.shape == ref.shape == (shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, 32)
+    assert int((got != ref).sum()) == 0 and ref.abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_trunk_int8_kernel_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, ws, scales = _int8_inputs((1, 8, 16, 3))
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            K8.trunk_int8(x.float(), *ws, scales)
+        with pytest.raises(ValueError):
+            K8.trunk_int8(x[:, :, ::2], *ws, scales)
+        with pytest.raises(ValueError):
+            K8.trunk_int8(torch.cat([x, x[..., :1]], -1), *ws, scales)
+        with pytest.raises(ValueError):
+            K8.trunk_int8(x, *[w.cpu() for w in ws], scales)
+        with pytest.raises(ValueError):
+            K8.trunk_int8(x, *ws, (scales[0], 0.0, scales[2]))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            K8.trunk_int8(x, *ws, None)
+    with pytest.raises(NotImplementedError):
+        K8.trunk_int8(x.clone().requires_grad_(), *ws, scales)
+
+
+@pytest.mark.gpu
+def test_trunk_int8_weight_cache_rebuilds_after_an_in_place_update():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, ws, scales = _int8_inputs((2, 33, 70, 3))
+    K8.prepare_int8_weights.calls = 0
+    with torch.no_grad():
+        first = K8.trunk_int8(x, *ws, scales)
+        assert torch.equal(K8.trunk_int8(x, *ws, scales), first)
+        assert K8.prepare_int8_weights.calls == 1
+        ws[2][3] += 0.5  # c2 weight, output channel 3: a new absmax
+        got = K8.trunk_int8(x, *ws, scales)
+        ref = K8.trunk_int8_plain(x, *ws, scales)
+    torch.cuda.synchronize()
+    assert K8.prepare_int8_weights.calls == 2
+    assert int((got != ref).sum()) == 0 and not torch.equal(got, first)
+
+
+@pytest.mark.gpu
+def test_precision8_roadmap_calibrates_once_and_runs_the_int8_kernel_only(monkeypatch):
+    """predict at precision 8 on the card: one calibration, B1-int8 once a
+    call, bf16 B1 never, and no plain version of a kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin
+    from driving_dirty_tpu_torch.models.roadmap import RoadMapBCEv2
+
+    model = RoadMapBCEv2(dict(ae_hidden_dim=8, ae_latent_dim=6, ae_input_height=32, ae_input_width=6 * 48,
+                              pretrained_path=None, batch_size=2, precision=8),
+                         device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(K8, "trunk_int8_plain", refuse)
+    monkeypatch.setattr(K, "trunk_plain", refuse)
+    images = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (2, 6, 32, 48, 3), np.uint8)).cuda()
+    calibrations, int8s, trunks = Int8TrunkMixin.calibrations, K8.trunk_int8.launches, K.trunk.launches
+    masks = [model.predict(images) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert Int8TrunkMixin.calibrations == calibrations + 1
+    assert K8.trunk_int8.launches == int8s + 2 and K.trunk.launches == trunks
+    assert torch.equal(masks[0], masks[1]) and masks[0].shape == (2, 800, 800)
 
 
 def _imports(path):

@@ -138,7 +138,6 @@ def test_compute_dtype():
     assert compute_dtype(None) is torch.float32
     assert compute_dtype(32) is torch.float32
     assert compute_dtype(16) is torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        compute_dtype(8)
+    assert compute_dtype(8) is torch.bfloat16
     with pytest.raises(ValueError):
         compute_dtype(64)
