@@ -22,7 +22,14 @@
    512: the kernel's time by CUDA events over back-to-back launches, the
    plain version's, bf16 B1's on the same input, the library route's (per
    layer an im2col, torch._int_mm and the epilogue in torch; empty if
-   _int_mm refuses), the int8 bound beside its bytes bound, and the share.
+   _int_mm refuses), the int8 bound beside its bytes bound, the share, and
+   B1-int8's time over bf16 B1's. Then the kernel's stage bisection
+   (scripts/probe_trunk_int8_variants.py: v0 input quantized, v1 + c1, v2 +
+   c2, full) at batch 8 of both main-path shapes, each stage held against
+   trunk_int8_variant_plain (0 differing elements) and timed, with the
+   launch count read around the probe, and the ptxas report of
+   csrc/trunk_int8.cu (registers, spills, C7520), which must show no spill
+   and no serialized wgmma.
 2b. Trunk stage-bisection phase (B1'): at f32 and bf16 [8, 256, 1836, 3]
    and at the JAX probe's bf16 [64, 256, 1836, 3], holds every variant of
    the trunk kernel (v0 .. full) against its plain version, checks that
@@ -178,7 +185,9 @@ from driving_dirty_tpu_torch.kernels.roialign import (channels_per_thread, roial
                                                       sample_coords)
 from driving_dirty_tpu_torch.kernels.trunk import (VARIANT_STAGES, out_hw, prepare_weights, trunk,
                                                    trunk_plain, trunk_variant, trunk_variant_plain)
-from driving_dirty_tpu_torch.kernels.trunk_int8 import prepare_int8_weights, trunk_int8, trunk_int8_plain
+from driving_dirty_tpu_torch.kernels.trunk_int8 import (prepare_int8_weights, trunk_int8,
+                                                        trunk_int8_plain, trunk_int8_variant,
+                                                        trunk_int8_variant_plain)
 from driving_dirty_tpu_torch.models.basic_ae import BasicAE
 from driving_dirty_tpu_torch.models.faster_rcnn import BBFasterRCNN, FasterRCNNRoadMap
 from driving_dirty_tpu_torch.models.multitask import MultiTask
@@ -189,6 +198,7 @@ from driving_dirty_tpu_torch.ops import detection as det
 from driving_dirty_tpu_torch.ops import quant
 from driving_dirty_tpu_torch.ops.maps import raster_geometry
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
+from driving_dirty_tpu_torch.scripts import probe_trunk_int8_variants as int8_probe
 from driving_dirty_tpu_torch.scripts.probe_trunk_variants import device_line, probe_inputs, run_probe
 from driving_dirty_tpu_torch.data.pipeline import tree_map
 from driving_dirty_tpu_torch.train import trainer as trainer_module
@@ -244,6 +254,8 @@ MASK_AGREEMENT = {32: 0.999, 16: 0.99}
 # only the first and last chunk are held.
 INT8_SHAPES = ((BATCH, *PANO, 3), (BATCH, *LAYOUT, 3), (2, 17, 35, 3), (3, 37, 101, 3))
 INT8_HEADLINE, INT8_CHUNK = 512, 8
+INT8_DESIGN = ("mma.sync.m16n8k32.s8, 16x16 c3 tiles of 8 warps, two CTAs an SM, int8 q1/q2 in shared memory, "
+               "an epilogue without int<->float conversions")
 # Precision-8 serving against the same model at precision 16 on one batch:
 # the JAX package's bar for the int8 trunk against the float path is > 99%
 # of mask pixels (tests/test_quant.py:80-94); for faster_rcnn_rm, which
@@ -475,20 +487,23 @@ def kernel_phase(gen) -> list[dict]:
     return records
 
 
-def variant_bound(x, stages: int) -> dict:
-    """Least time of one stage-bisection variant at x's shape (conv_bound):
-    the products its output needs (v1: c1 at the c3 positions; v3: c1
-    everywhere and c2 at the c3 positions; full: the trunk), and its bytes
-    (the input it reads, all of x but for v0's quarter, and the output)
-    over 3.35 TB/s."""
-    if stages == 3:
-        return trunk_bound(x)
+def variant_work(x, stages: int) -> tuple[int, int]:
+    """(products, bytes) of one stage-bisection variant (stages < 3) at x's
+    shape: the products its output needs (the stage-1 variant: c1 at the c3
+    positions; stage 2: c1 everywhere and c2 at the c3 positions), and its
+    bytes (the input it reads, all of x but for stage 0's quarter, and the
+    output at the c3 positions)."""
     b, h, w, _ = x.shape
     ho, wo = out_hw(h, w)
     macs = b * ((0, ho * wo * 32 * 27, h * w * 32 * 27 + ho * wo * 32 * 288)[stages])
     pixels_in = b * ho * wo if stages == 0 else b * h * w
-    nbytes = (pixels_in * 3 + b * ho * wo * 32) * x.element_size()
-    return conv_bound(macs, nbytes, x.dtype)
+    return macs, (pixels_in * 3 + b * ho * wo * 32) * x.element_size()
+
+
+def variant_bound(x, stages: int) -> dict:
+    """Least time of one B1 stage-bisection variant at x's shape
+    (conv_bound of variant_work; full: the trunk)."""
+    return trunk_bound(x) if stages == 3 else conv_bound(*variant_work(x, stages), x.dtype)
 
 
 def variant_library(x, w1, b1, w2, b2, w3, b3, *, stages: int):
@@ -546,18 +561,23 @@ def probe_phase() -> list[dict]:
     return records
 
 
-def int8_bound(x) -> dict:
-    """Least time of B1-int8 on x: its products as int8 operations at 1,979
-    TOPS (c1's 27 products a position, c2's and c3's 288), against the bf16
-    input read once, the bf16 c3 written once and its weights and epilogue
-    constants (19,456 + 768 B) over 3.35 TB/s."""
-    b, h, w, _ = x.shape
-    ho, wo = out_hw(h, w)
-    macs = b * (h * w * 32 * 27 + h * w * 32 * 288 + ho * wo * 32 * 288)
-    nbytes = (x.numel() + b * ho * wo * 32) * x.element_size() + 19456 + 768
+def int8_ops_bound(macs: int, nbytes: int) -> dict:
+    """Least time of `macs` int8 products at 1,979 TOPS against `nbytes`
+    over 3.35 TB/s."""
     t_ops, t_bytes = 2 * macs / PEAK_OPS["int8"], nbytes / PEAK_BYTES
     return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bytes_bound_ms": 1e3 * t_bytes}
+
+
+def int8_bound(x) -> dict:
+    """Least time of B1-int8 on x: its products as int8 operations (c1's 27
+    products a position, c2's and c3's 288), against the bf16 input read
+    once, the bf16 c3 written once and its weights and epilogue constants
+    (19,456 + 768 B)."""
+    b, h, w, _ = x.shape
+    ho, wo = out_hw(h, w)
+    macs = b * (h * w * 32 * 27 + h * w * 32 * 288 + ho * wo * 32 * 288)
+    return int8_ops_bound(macs, (x.numel() + b * ho * wo * 32) * x.element_size() + 19456 + 768)
 
 
 def int8_library_layers(params, scales):
@@ -644,20 +664,70 @@ def int8_phase(gen) -> list[dict]:
             "name": "trunk_int8", "route": "cuda", "source": "driving_dirty_tpu_torch/csrc/trunk_int8.cu",
             "replaces": "driving_dirty_tpu/ops/quant.py:139 (encoder_convs_int8, static scales: XLA int8 "
                         "convs, no Pallas twin)",
-            "design": "mma.sync.m16n8k32.s8, int8 q1/q2 in shared memory", "path": path,
+            "design": INT8_DESIGN, "path": path,
             "shape": list(shape), "dtype": "bfloat16", "scales": list(scales),
             "max_abs_err": 0.0, "differing_elements": diff, "held_elements": n, "max_abs_plain": scale,
             "ms": ms, "plain_ms": plain_ms, "plain_how": f"float64 convs, in chunks of {INT8_CHUNK}",
-            "bf16_trunk_ms": bf16_ms, "library_ms": library_ms,
+            "bf16_trunk_ms": bf16_ms, "ratio_to_bf16": ms / bf16_ms, "library_ms": library_ms,
             "library_calls": library_how + (f", in chunks of {INT8_CHUNK}" if library_ms is not None else ""),
             "library_differing_elements": library_diff,
             **bound, "roofline_share": bound["bound_ms"] / ms})
         print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms ({records[-1]['plain_how']}), "
-              f"bf16 B1 {bf16_ms:.4f} ms, library ({library_how}) "
+              f"bf16 B1 {bf16_ms:.4f} ms (B1-int8 / bf16 B1 {ms / bf16_ms:.3f}), library ({library_how}) "
               f"{'-' if library_ms is None else f'{library_ms:.3f} ms ({library_diff} elements differ from plain)'}, "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; bytes {bound['bytes_bound_ms']:.4f} ms), "
               f"share {bound['bound_ms'] / ms:.3f}", flush=True)
         del x, params, got, held
+        torch.cuda.empty_cache()
+    return records
+
+
+def int8_variant_bound(x, stages: int) -> dict:
+    """Least time of one B1-int8 stage variant at x's shape: variant_work's
+    products as int8 operations (full: int8_bound)."""
+    return int8_bound(x) if stages == 3 else int8_ops_bound(*variant_work(x, stages))
+
+
+def int8_variant_phase() -> list[dict]:
+    """B1-int8's stage bisection: the ptxas report of csrc/trunk_int8.cu
+    (no spill, no serialized wgmma, or this raises), then the probe's
+    run_probe at batch 8 of both main-path shapes (each stage held against
+    trunk_int8_variant_plain with 0 differing elements, and timed beside
+    bf16 B1) with the launch count read around it, and each stage's plain
+    version timed on the same seeded inputs."""
+    rep = int8_probe.ptxas_report()
+    print(f"trunk_int8 {int8_probe.ptxas_line(rep)}", flush=True)
+    if rep["built"] and (rep["spill_bytes"] or rep["c7520"]):
+        raise RuntimeError(f"trunk_int8.cu: {rep['spill_bytes']} spill bytes, C7520 {rep['c7520']}")
+    trunk_int8_variant.launches = 0
+    probe = int8_probe.run_probe(BATCH)
+    launches = trunk_int8_variant.launches
+    if sum(r["launches"] for r in probe) != launches or not all(r["launches"] for r in probe):
+        raise RuntimeError(f"int8 probe launches {[r['launches'] for r in probe]}, counted {launches}")
+    records = []
+    for path, hw in int8_probe.SHAPES.items():
+        x, params, scales = int8_probe.probe_inputs(BATCH, hw)
+        with torch.no_grad():
+            for r in (r for r in probe if r["path"] == path):
+                v, stages = r["variant"], r["stages"]
+                plain_ms = cuda_ms(lambda: trunk_int8_variant_plain(x, *params, scales, variant=v))
+                bound = int8_variant_bound(x, stages)
+                records.append({
+                    "name": "trunk_int8_variant", "route": "cuda",
+                    "source": "driving_dirty_tpu_torch/csrc/trunk_int8.cu",
+                    "replaces": f"driving_dirty_tpu/ops/quant.py:139 (encoder_convs_int8), stage {v} "
+                                "(scripts/probe_trunk_int8_variants.py)",
+                    "design": INT8_DESIGN, "variant": v, "stages": stages, "path": path, "shape": r["shape"],
+                    "dtype": "bfloat16", "max_abs_err": 0.0, "differing_elements": 0,
+                    "held_elements": r["held_elements"], "launches": r["launches"], "ms": r["ms"],
+                    "bf16_trunk_ms": r["bf16_trunk_ms"], "ratio_to_bf16": r["ratio_to_bf16"],
+                    "plain_ms": plain_ms, "library_ms": None, **bound,
+                    "roofline_share": bound["bound_ms"] / r["ms"]})
+                print(f"trunk_int8_variant {r['shape']} {v}: kernel {r['ms']:.4f} ms ({r['ratio_to_bf16']:.3f} of "
+                      f"bf16 B1's {r['bf16_trunk_ms']:.4f} ms; {r['launches']} launches), 0 of "
+                      f"{r['held_elements']} elements differ, plain {plain_ms:.3f} ms, bound "
+                      f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+        del x, params
         torch.cuda.empty_cache()
     return records
 
@@ -1888,6 +1958,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = kernel_phase(gen)
     int8_recs = int8_phase(gen)
+    int8_variant_recs = int8_variant_phase()
     variant_recs = probe_phase()
     tf32_line("kernel phases")
     raster_rec = raster_phase()
@@ -1925,7 +1996,7 @@ def main() -> int:
         if r["path"] == "roadmap":
             r["cli_launches"] = {"run_test_8": trainer["run_test_8"]["trunk_int8_launches"],
                                  "roadmap_bce_8": trainer["roadmap_bce_8"]["trunk_int8_launches"]}
-    records += int8_recs + roialign_recs + variant_recs
+    records += int8_recs + int8_variant_recs + roialign_recs + variant_recs
     f32_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "float32")
     f32_path["cli_launches"] = {k: trainer[k]["trunk_launches"] for k in ("basic_ae", "roadmap_bce", "run_test")}
     bf16_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "bfloat16")

@@ -15,59 +15,84 @@
 //   c3 = bf16(relu(f32(acc3) * comb3 + b3)), acc3 = conv(q2, w3q, stride 2)
 //
 // with 3x3 convs, padding 1, c3 [B, Ho, Wo, 32], Ho = (H + 1) / 2, Wo = (W +
-// 1) / 2, any H and W. rn is round to nearest even (__float2int_rn, as
-// torch.round); comb_l[o] = f32(1/s_l) * w_inv_l[o] and the per-channel int8
-// weights come prepared from the wrapper (the plain version's own values).
-// Every float step is an _rn intrinsic, so nvcc contracts nothing into an
-// fma, and the int32 sums are exact: the kernel equals the plain version
-// bit for bit. Only x and c3 touch device memory: q1 and q2 live in shared
-// memory as int8, one tile at a time; positions outside the image are
-// stored as 0 (the next conv's zero padding).
+// 1) / 2, any H and W. rn is round to nearest even (as torch.round); comb_l[o]
+// = f32(1/s_l) * w_inv_l[o] and the per-channel int8 weights come prepared
+// from the wrapper (the plain version's own values). The int32 sums are
+// exact and every float step rounds as the plain version's does, so the
+// kernel equals it bit for bit. Only x and c3 touch device memory: q1 and
+// q2 live in shared memory as int8, one tile at a time; positions outside
+// the image are stored as 0 (the next conv's zero padding).
+//
+// The epilogue (82,240 values a tile: q1, q2 and c3; most of the kernel's
+// time) runs no 32-bit int <-> float conversion (those issue at 16 a clock
+// an SM on compute capability 9.0). Per value:
+//   int32 -> f32  the sum starts at the bits of 1.5 * 2^23 (the first
+//                 k-step's mma C operand), so acc + those bits is the float
+//                 1.5 * 2^23 + acc, exact for |acc| <= 2^22; one f32 add
+//                 takes 1.5 * 2^23 off. A layer whose 127 * sum |wq| reaches
+//                 2^22 starts at 0 and takes __int2float_rn instead
+//                 (kernels/trunk_int8.py:int_path_flags; template CVT2, CVT3);
+//   * comb, + b   an f32 multiply and an f32 add (_rn: no fma);
+//   ReLU, bf16    one cvt.rn.relu.bf16x2.f32 with bf16(0) as the other half,
+//                 whose bits are then the bf16 value as an f32 (c3 packs two
+//                 values a cvt and stores the pair);
+//   requantize    rn(min(v * s, 127)) as min(v * s, 127) + 1.5 * 2^23 (the
+//                 ReLU output is >= 0: only the upper clamp acts): an f32
+//                 multiply, a min, an f32 add; the int8 is the low byte;
+//   pack          three byte permutes for four values, one 8-B shared store
+//                 for a row's eight.
+// That is 3 f32 adds, 2 f32 multiplies, a min, a cvt and 0.75 permutes a
+// value. q0 keeps both clamps (the input may be negative) and its low byte
+// is the two's complement int8.
 //
 // Products: each conv is an implicit GEMM, out[M = positions][N = 32] =
 // A[M][K] x B[K][32], on mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32.
 // One 3 x 3 tap of c2 or c3 has 32 int8 input channels: exactly one k-step
 // (K = 9 x 32 = 288, nine k-steps). c1's 27 products pad with zero weights
-// to one k-step.
+// to one k-step. B's columns are permuted (int8_fragments, N_PERM) so that
+// accumulator lane (g, tg) holds the 8 consecutive channels 8tg .. 8tg + 7
+// of its rows, which its epilogue packs and stores whole.
 //
 // A operand. q1 and q2 are stored [pixel][32 channels] int8, 32 B a pixel,
 // its two 16-B chunks XOR-swizzled by (p >> 2) & 1 (sw() below), so that 8
 // consecutive pixels cover all 32 banks. An m16n8k32 s8 A fragment is the
-// same bytes as an m16n8k16 bf16 one (16 rows x 32 B; lane (g, tg) holds
-// bytes 4tg..4tg+3 of rows g and g + 8, then of bytes 16 + 4tg..), so, as in
-// the bf16 B1 (csrc/trunk.cu), one ldmatrix.x4 of the 16 row addresses
-// (position m's pixel plus the tap's offset) loads it, and q2 is stored
-// with its even columns first for c3's stride 2. c1's A fragments are
-// gathered from the int8 input tile with byte loads.
+// same bytes as an m16n8k16 bf16 one, so, as in the bf16 B1 (csrc/trunk.cu),
+// one ldmatrix.x4 of the 16 row addresses (position m's pixel plus the
+// tap's offset) loads it, and q2 is stored with its even columns first for
+// c3's stride 2. c1's A fragments are gathered from the int8 input tile
+// with byte loads.
 //
-// B operand. kernels/trunk_int8.py:int8_fragments lays each weight out in
-// fragment order, [k-step][n-pair][lane][16 B] (b0, b1 of the pair's two n8
-// tiles); each CTA stages all three (19,456 B) and the epilogue constants
-// (768 B) in shared memory once, with cp.async.
+// B operand. int8_fragments lays each weight out in fragment order,
+// [k-step][n-pair][lane][16 B]; each CTA stages all three (19,456 B) and
+// the epilogue constants (768 B) in shared memory once, with cp.async.
 //
-// Tiling: that of the bf16 B1. A CTA of 12 warps owns an 8 x 16 tile of c3
-// at a time, in a persistent grid over (image, tile row, tile column).
-// Per tile:
-//   input  21 x 37 x 3 bf16, loaded into registers while the previous tile
-//          computes, quantized by s1 as it is stored to shared memory;
-//   c1     19 x 35 = 665 positions = 42 m16 tiles, 21 units of 2 (1 k-step);
-//   c2     17 x 33 = 561 positions = 36 m16 tiles, 3 per warp (9 k-steps);
-//   c3     8 rows of 16 = 8 m16 tiles, 2 per warp on warps 0-3.
+// Tiling: a CTA of 8 warps owns a 16 x 16 tile of c3 at a time, in a
+// persistent grid over (image, tile row, tile column), two CTAs an SM
+// (__launch_bounds__(256, 2): at most 128 registers). Per tile:
+//   input  37 x 37 x 3 bf16, loaded into registers while the previous tile
+//          computes (a thread a column of a row, every other row),
+//          quantized by s1 as it is stored to shared memory;
+//   c1     35 x 35 = 1,225 positions = 77 m16 tiles, 39 units of 2 (1 k-step)
+//          over the 8 warps;
+//   c2     33 x 33 = 1,089 positions = 69 m16 tiles, 23 units of 3 (9 k-steps);
+//   c3     16 rows of 16 = 16 m16 tiles, one unit of 2 on each warp.
+// The halo costs 20% (c1) and 6% (c2) over the 1,024 positions a tile needs.
 // Shared memory per CTA:
 //   weights (B fragments)  1,024 + 9,216 + 9,216 = 19,456 B
 //   epilogue [comb | bias] 192 f32               =    768 B
-//   input  21 x 37 x 3 int8                      =  2,331 B
-//   q1     665 x 32 B                            = 21,280 B
-//   q2     561 x 32 B                            = 17,952 B
-//   total with 128-B alignment                   = 61,952 B
-// Per tile the warps run 1,296 c2 + 288 c3 + 168 c1 mma and an epilogue of
-// about ten instructions for each of 43,808 values (q1, q2, c3).
+//   input  37 x 37 x 3 int8                      =  4,107 B
+//   q1     1,225 x 32 B                          = 39,200 B
+//   q2     1,089 x 32 B                          = 34,848 B
+//   total with 128-B alignment                   = 98,592 B
+// A wgmma.m64n32k32.s32.s8.s8 version of c1, c2 and c3 (A from the same
+// ldmatrix fragments, B by shared-memory descriptor, one m64 unit's
+// epilogue under the next unit's products) was bit-equal but slower on the
+// H100 and spilled at 128 registers; PERF.md §6 has its numbers.
 //
 // Bound on the H100 at the main path's [8, 256, 1836, 3]: 46.6 G products,
 // 93.1 GOP, 47 us at 1,979 TOPS int8 dense, against 82.7 MB of bf16 input
-// and output (24.7 us at 3.35 TB/s): bound by operations. mma.sync reaches
-// a fraction of the dense rate, and the epilogue's instructions are of the
-// same order as the products (wgmma and a leaner epilogue are later work).
+// and output (24.7 us at 3.35 TB/s): bound by operations. The epilogue's
+// instructions, not the products, take most of the time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,22 +102,20 @@ namespace {
 
 constexpr int C = 32;    // trunk width, fixed by the architecture
 constexpr int CIN = 3;   // input channels
-constexpr int QMAX = 127;
 
-constexpr int TH = 8, TW = 16;                   // c3 tile
-constexpr int WARPS = 12, THREADS = 32 * WARPS;
-constexpr int R2 = 2 * TH + 1, Q2 = 2 * TW + 1;  // q2 region 17 x 33
-constexpr int R1 = 2 * TH + 3, Q1 = 2 * TW + 3;  // q1 region 19 x 35
-constexpr int R0 = 2 * TH + 5, Q0 = 2 * TW + 5;  // input     21 x 37
-constexpr int N1 = R1 * Q1, N2 = R2 * Q2;        // 665, 561 positions
-constexpr int MT1 = (N1 + 15) / 16, MT2 = (N2 + 15) / 16, MT3 = TH;  // m16 tiles
-constexpr int G1 = 2, G2 = MT2 / WARPS, G3 = 2;  // m16 tiles per warp unit
+constexpr int TH = 16, TW = 16;                  // c3 tile
+constexpr int WARPS = 8, THREADS = 32 * WARPS;   // two CTAs an SM
+constexpr int R2 = 2 * TH + 1, Q2 = 2 * TW + 1;  // q2 region 33 x 33
+constexpr int R1 = 2 * TH + 3, Q1 = 2 * TW + 3;  // q1 region 35 x 35
+constexpr int R0 = 2 * TH + 5, Q0 = 2 * TW + 5;  // input     37 x 37
+constexpr int N1 = R1 * Q1, N2 = R2 * Q2;        // 1,225, 1,089 positions
+constexpr int MT1 = (N1 + 15) / 16, MT2 = (N2 + 15) / 16, MT3 = TH;  // m16 tiles: 77, 69, 16
+constexpr int G1 = 2, G2 = 3, G3 = 2;            // m16 tiles per warp unit
+constexpr int U1 = (MT1 + G1 - 1) / G1, U2 = (MT2 + G2 - 1) / G2, U3 = MT3 / G3;  // units: 39, 23, 8
 static_assert(TW == 16, "a c3 m16 tile is one row of the c3 tile");
-static_assert(MT1 % G1 == 0 && MT2 % WARPS == 0 && MT3 % G3 == 0, "whole units");
-static_assert(MT3 / G3 <= WARPS, "one c3 unit per warp");
+static_assert(MT3 % G3 == 0 && U3 == WARPS, "one c3 unit per warp");
 constexpr int Q2E = (Q2 + 1) / 2;                // even q2 columns, stored first
 constexpr int XN = R0 * Q0 * CIN;                // input tile elements
-constexpr int XPT = (XN + THREADS - 1) / THREADS;
 constexpr int KS1 = 1, KS = 9;                   // k32 steps of c1 and of c2, c3
 constexpr int FRAG = 2 * 32;                     // uint4 per k-step: 2 n-pairs x 32 lanes
 constexpr int W_U4 = (KS1 + 2 * KS) * FRAG;      // 1,216 uint4 = 19,456 B
@@ -106,10 +129,6 @@ constexpr int OFF_C1 = align128(OFF_X + XN);
 constexpr int OFF_C2 = align128(OFF_C1 + N1 * 32);
 constexpr int SMEM = OFF_C2 + N2 * 32;
 static_assert(SMEM <= 232448, "shared memory of one CTA");
-
-__device__ __forceinline__ bool inside(int y, int x, int h, int w) {
-  return y >= 0 && y < h && x >= 0 && x < w;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -126,51 +145,138 @@ __device__ __forceinline__ int sw(int p, int chunk) {
   return (p << 5) | ((chunk ^ ((p >> 2) & 1)) << 4);
 }
 
+// d = a b + d, or with a C operand, d = a b + (c, c, c, c).
 __device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void mma_c(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1, int c) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(c));
+}
+
 // All four n8 tiles of one k-step: B fragments of n-tiles 0,1 in bl and
-// 2,3 in bh.
-__device__ __forceinline__ void mma_n32(int (&d)[4][4], const uint32_t (&a)[4], const uint4& bl,
-                                        const uint4& bh) {
-  mma(d[0], a, bl.x, bl.y);
-  mma(d[1], a, bl.z, bl.w);
-  mma(d[2], a, bh.x, bh.y);
-  mma(d[3], a, bh.z, bh.w);
+// 2,3 in bh. The first k-step (FIRST) starts the sums at c.
+template <bool FIRST>
+__device__ __forceinline__ void mma_n32(int (&d)[4][4], const uint32_t (&a)[4], const uint4& bl, const uint4& bh,
+                                        int c) {
+  if constexpr (FIRST) {
+    mma_c(d[0], a, bl.x, bl.y, c);
+    mma_c(d[1], a, bl.z, bl.w, c);
+    mma_c(d[2], a, bh.x, bh.y, c);
+    mma_c(d[3], a, bh.z, bh.w, c);
+  } else {
+    mma(d[0], a, bl.x, bl.y);
+    mma(d[1], a, bl.z, bl.w);
+    mma(d[2], a, bh.x, bh.y);
+    mma(d[3], a, bh.z, bh.w);
+  }
 }
 
-template <int G>
-__device__ __forceinline__ void zero(int (&acc)[G][4][4]) {
+// The epilogue, exact and off the conversion pipe. Every step is an _rn
+// intrinsic or an integer operation on the bits, so nvcc contracts nothing
+// into an fma and each value equals the plain version's.
+
+constexpr float MAGIC = 12582912.f;  // 1.5 * 2^23: its ulp is 1
+constexpr int MAGIC_BITS = 0x4B400000;
+
+// The value the products of a layer start from: 0 for __int2float_rn
+// (CVT: the conversion pipe, 16 a clock an SM), taken by a layer whose 127
+// * sum_k |wq[k][n]| reaches 2^22; else the bits of 1.5 * 2^23, so that
+// the int32 sum is those bits plus acc (the mma's C operand adds them).
+template <bool CVT>
+constexpr int SUM_START = CVT ? 0 : MAGIC_BITS;
+
+// f32(acc) of a sum started at SUM_START<CVT>, exactly: for the magic
+// start, 1.5 * 2^23 + acc as a float (exact for |acc| <= 2^22) with 1.5 *
+// 2^23 taken off again (an f32 add).
+template <bool CVT>
+__device__ __forceinline__ float to_f32(int sum) {
+  if constexpr (CVT) {
+    return __int2float_rn(sum);
+  } else {
+    return __fsub_rn(__int_as_float(sum), MAGIC);
+  }
+}
+
+// f32(acc) * comb + bias from a sum started at SUM_START<CVT>, one
+// rounding each (no fma).
+template <bool CVT>
+__device__ __forceinline__ float affine(int sum, float comb, float bias) {
+  return __fadd_rn(__fmul_rn(to_f32<CVT>(sum), comb), bias);
+}
+
+// (relu(lo), relu(hi)) rounded to bf16 to nearest even, packed (lo in the
+// low half): one cvt for two values.
+__device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// relu(v) rounded to bf16 to nearest even, as an f32: one cvt whose other
+// half is bf16(0), so its bits are already the f32's.
+__device__ __forceinline__ float relu_bf16(float v) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(v), "f"(0.f));
+  return __uint_as_float(r);
+}
+
+// clamp(rn(v * s), -127, 127) for v >= 0 (a ReLU output), in the low byte
+// of the result: only the upper clamp can act, and rn(min(v * s, 127))
+// equals it; adding 1.5 * 2^23 rounds to nearest even and leaves the
+// integer in the low mantissa bits.
+__device__ __forceinline__ uint32_t requant(float v, float s) {
+  return __float_as_uint(__fadd_rn(fminf(__fmul_rn(v, s), 127.f), MAGIC));
+}
+
+// The same for any sign (the input q0): both clamps; the low byte is then
+// the two's-complement int8.
+__device__ __forceinline__ uint32_t quant(float v, float s) {
+  return __float_as_uint(__fadd_rn(fmaxf(fminf(__fmul_rn(v, s), 127.f), -127.f), MAGIC));
+}
+
+// Low bytes of a, b, c, d -> one word, a in the low byte.
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// One accumulator row of a thread: acc[j][2hh + e] is channel 8tg + 2j + e
+// (int8_fragments permutes B's columns so; comb, bias: those 8 channels).
+// -> the layer's output requantized by s, 8 bytes.
+template <bool CVT>
+__device__ __forceinline__ uint2 requant_row(const int (&acc)[4][4], int hh, const float (&comb)[8],
+                                             const float (&bias)[8], float s) {
+  uint32_t q[8];
 #pragma unroll
-  for (int m = 0; m < G; ++m)
+  for (int j = 0; j < 4; ++j) {
+    q[2 * j] = requant(relu_bf16(affine<CVT>(acc[j][2 * hh], comb[2 * j], bias[2 * j])), s);
+    q[2 * j + 1] = requant(relu_bf16(affine<CVT>(acc[j][2 * hh + 1], comb[2 * j + 1], bias[2 * j + 1])), s);
+  }
+  return make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
+}
+
+// The same row as the layer's bf16 output (c3), 16 B.
+template <bool CVT>
+__device__ __forceinline__ uint4 bf16_row(const int (&acc)[4][4], int hh, const float (&comb)[8],
+                                          const float (&bias)[8]) {
+  uint32_t p[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0;
+  for (int j = 0; j < 4; ++j)
+    p[j] = relu_bf16x2(affine<CVT>(acc[j][2 * hh], comb[2 * j], bias[2 * j]),
+                       affine<CVT>(acc[j][2 * hh + 1], comb[2 * j + 1], bias[2 * j + 1]));
+  return make_uint4(p[0], p[1], p[2], p[3]);
 }
 
-// clamp(rn(v * s), -127, 127): ops/quant.py:quantize on an f32 value.
-__device__ __forceinline__ int quant(float v, float s) {
-  return max(-QMAX, min(QMAX, __float2int_rn(__fmul_rn(v, s))));
-}
-
-// relu(f32(acc) * comb + bias), rounded to bf16: the layer's output.
-__device__ __forceinline__ __nv_bfloat16 dequant(int acc, float comb, float bias) {
-  return __float2bfloat16_rn(fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc), comb), bias), 0.f));
-}
-
-// Two adjacent channels (n, n + 1) of a c1 or c2 accumulator -> their next
-// layer's int8 inputs, packed in the low 16 bits (channel n in the low byte).
-__device__ __forceinline__ uint32_t requant2(int a0, int a1, const float* comb, const float* bias, int n,
-                                             float s) {
-  const int q0 = quant(__bfloat162float(dequant(a0, comb[n], bias[n])), s);
-  const int q1 = quant(__bfloat162float(dequant(a1, comb[n + 1], bias[n + 1])), s);
-  return (static_cast<uint32_t>(q0) & 0xffu) | ((static_cast<uint32_t>(q1) & 0xffu) << 8);
+// This thread's 8 channels (8tg ..) of a layer's epilogue constants.
+__device__ __forceinline__ void load8(float (&r)[8], const float* v, int tg) {
+  const float4 a = reinterpret_cast<const float4*>(v)[2 * tg], b = reinterpret_cast<const float4*>(v)[2 * tg + 1];
+  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w; r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
 }
 
 // Copy nw 16-B words from w, then ne from e, into shared memory at smem
@@ -196,28 +302,66 @@ __device__ __forceinline__ Tile tile_at(long long t, long long per_img, int tile
 }
 
 // This thread's share of a tile's bf16 input (local (r, q) is global
-// (2*oy0 - 3 + r, 2*ox0 - 3 + q)), zero outside the image.
-__device__ __forceinline__ void fetch_input(unsigned short (&xr)[XPT], const unsigned short* x, Tile tl,
+// (2*oy0 - 3 + r, 2*ox0 - 3 + q)), zero outside the image: value c = tid %
+// 128 (< Q0*CIN) of rows tid / 128, + 2, + 4, ... (XROWS of them).
+constexpr int XROW = Q0 * CIN, XSTEP = THREADS / 128, XROWS = (R0 + XSTEP - 1) / XSTEP;
+static_assert(XROW <= 128, "a row's values fit one thread each");
+
+__device__ __forceinline__ void fetch_input(unsigned short (&xr)[XROWS], const unsigned short* x, Tile tl,
                                             int H, int W, int tid) {
-  const unsigned short* xb = x + (size_t)tl.b * H * W * CIN;
-  const int gy0 = 2 * tl.oy0 - 3, gx0 = 2 * tl.ox0 - 3;
+  const int c = tid % 128, r0 = tid / 128;
+  const int gx = 2 * tl.ox0 - 3 + c / CIN, gy0 = 2 * tl.oy0 - 3 + r0;
+  const bool col_in = c < XROW && static_cast<unsigned>(gx) < static_cast<unsigned>(W);
+  const unsigned short* src = x + (((size_t)tl.b * H + gy0) * W + gx) * CIN + c % CIN;
 #pragma unroll
-  for (int j = 0; j < XPT; ++j) {
-    const int i = tid + j * THREADS;
-    const int r = i / (Q0 * CIN);
-    const int rem = i - r * (Q0 * CIN);
-    const int q = rem / CIN;
-    const int gy = gy0 + r, gx = gx0 + q;
-    xr[j] = (i < XN && inside(gy, gx, H, W)) ? __ldg(xb + ((size_t)gy * W + gx) * CIN + rem - q * CIN) : 0;
+  for (int k = 0; k < XROWS; ++k) {
+    const int gy = gy0 + XSTEP * k;
+    xr[k] = (r0 + XSTEP * k < R0 && col_in && static_cast<unsigned>(gy) < static_cast<unsigned>(H))
+                ? __ldg(src + (ptrdiff_t)XSTEP * k * W * CIN)
+                : 0;
   }
 }
 
+// Quantize what fetch_input gave this thread by s1 into the input tile.
+__device__ __forceinline__ void store_input(signed char* xs, const unsigned short (&xr)[XROWS], float s1, int tid) {
+  const int c = tid % 128, r0 = tid / 128;
+  if (c >= XROW) return;
+#pragma unroll
+  for (int k = 0; k < XROWS; ++k)
+    if (r0 + XSTEP * k < R0)
+      xs[(r0 + XSTEP * k) * XROW + c] =
+          static_cast<signed char>(quant(__uint_as_float(static_cast<uint32_t>(xr[k]) << 16), s1) & 0xffu);
+}
+
+// Row bookkeeping of an epilogue: a thread's rows of a unit are row0,
+// row0 + 8, ..., and (r, q) = (row / width, row % width) moves with them.
+template <int WIDTH>
+struct RowWalk {
+  int row, r, q;
+  __device__ __forceinline__ explicit RowWalk(int row0) : row(row0), r(row0 / WIDTH), q(row0 % WIDTH) {}
+  __device__ __forceinline__ void next() {
+    static_assert(WIDTH > 8, "one wrap a step");
+    row += 8;
+    q += 8;
+    if (q >= WIDTH) {
+      q -= WIDTH;
+      ++r;
+    }
+  }
+};
+
+// (gy, gx) inside [0, h) x [0, w), by unsigned compares.
+__device__ __forceinline__ bool inside(int gy, int gx, int h, int w) {
+  return static_cast<unsigned>(gy) < static_cast<unsigned>(h) && static_cast<unsigned>(gx) < static_cast<unsigned>(w);
+}
+
 // c1: local (r, q) is global (2*oy0 - 2 + r, 2*ox0 - 2 + q); pixel r*Q1 + q.
-// Stores q1 = its output requantized by s2.
+// Stores q1 = its output requantized by s2 (0 outside the image).
 __device__ __forceinline__ void conv1(const signed char* xs, const uint4* w1f, const float* comb,
                                       const float* bias, float s2, unsigned char* c1s, Tile tl, int H,
                                       int W, int warp, int lane) {
   const int g = lane >> 2, tg = lane & 3;
+  const int gy0 = 2 * tl.oy0 - 2, gx0 = 2 * tl.ox0 - 2;
   // The 8 K indices this thread's A fragments hold: i -> k = 16*(i >> 2) +
   // 4*tg + (i & 3), k = (ky*3 + kx)*3 + ci; -1 for K's zero padding.
   int koff[8];
@@ -237,99 +381,92 @@ __device__ __forceinline__ void conv1(const signed char* xs, const uint4* w1f, c
     }
     return v;
   };
-  for (int u = warp; u < MT1 / G1; u += WARPS) {
+  for (int u = warp; u < U1; u += WARPS) {
     int acc[G1][4][4];
-    zero<G1>(acc);
-    int base[G1][2];
 #pragma unroll
-    for (int m = 0; m < G1; ++m)
+    for (int m = 0; m < G1; ++m) {
+      int base[2];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int row = min((u * G1 + m) * 16 + g + 8 * hh, N1 - 1);
-        base[m][hh] = ((row / Q1) * Q0 + row % Q1) * CIN;
+        base[hh] = ((row / Q1) * Q0 + row % Q1) * CIN;
       }
-#pragma unroll
-    for (int m = 0; m < G1; ++m) {
       uint32_t a[4];
-      a[0] = ld4(base[m][0], 0);
-      a[1] = ld4(base[m][1], 0);
-      a[2] = ld4(base[m][0], 1);
-      a[3] = ld4(base[m][1], 1);
-      mma_n32(acc[m], a, bl, bh);
+      a[0] = ld4(base[0], 0);
+      a[1] = ld4(base[1], 0);
+      a[2] = ld4(base[0], 1);
+      a[3] = ld4(base[1], 1);
+      mma_n32<true>(acc[m], a, bl, bh, SUM_START<false>);
     }
+    float cr[8], br[8];
+    load8(cr, comb, tg);
+    load8(br, bias, tg);
+    RowWalk<Q1> w(u * G1 * 16 + g);
 #pragma unroll
-    for (int m = 0; m < G1; ++m)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = (u * G1 + m) * 16 + g + 8 * hh;
-        if (row >= N1) continue;
-        const bool in = inside(2 * tl.oy0 - 2 + row / Q1, 2 * tl.ox0 - 2 + row % Q1, H, W);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = 8 * j + 2 * tg;
-          *reinterpret_cast<unsigned short*>(c1s + sw(row, j >> 1) + 8 * (j & 1) + 2 * tg) =
-              in ? static_cast<unsigned short>(requant2(acc[m][j][2 * hh], acc[m][j][2 * hh + 1], comb,
-                                                        bias, n, s2))
-                 : 0;
-        }
-      }
+    for (int k = 0; k < 2 * G1; ++k, w.next()) {
+      // c1's |acc| <= 27 * 127 * 127 < 2^22: always the magic conversion
+      const uint2 v = requant_row<false>(acc[k >> 1], k & 1, cr, br, s2);
+      const bool in = inside(gy0 + w.r, gx0 + w.q, H, W);
+      if (w.row < N1)
+        *reinterpret_cast<uint2*>(c1s + sw(w.row, tg >> 1) + 8 * (tg & 1)) = in ? v : make_uint2(0, 0);
+    }
   }
 }
 
 // c2: local (r, q) is global (2*oy0 - 1 + r, 2*ox0 - 1 + q); stored at
-// pixel r*Q2 + (q even ? q/2 : Q2E + q/2), requantized by s3.
+// pixel r*Q2 + (q even ? q/2 : Q2E + q/2), requantized by s3 (0 outside the
+// image).
+template <bool CVT>
 __device__ __forceinline__ void conv2(uint32_t c1a, const uint4* w2f, const float* comb, const float* bias,
                                       float s3, unsigned char* c2s, Tile tl, int H, int W, int warp,
                                       int lane) {
   const int g = lane >> 2, tg = lane & 3, csel = lane >> 4;
-  const int mt0 = warp * G2;
-  int pix[G2];  // q1 pixel under tap (0, 0) of this lane's ldmatrix row
-#pragma unroll
-  for (int m = 0; m < G2; ++m) {
-    const int row = min((mt0 + m) * 16 + (lane & 15), N2 - 1);
-    pix[m] = (row / Q2) * Q1 + row % Q2;
-  }
-  int acc[G2][4][4];
-  zero<G2>(acc);
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const int toff = (tap / 3) * Q1 + tap % 3;
-    const uint4 bl = w2f[(2 * tap) * 32 + lane], bh = w2f[(2 * tap + 1) * 32 + lane];
+  const int gy0 = 2 * tl.oy0 - 1, gx0 = 2 * tl.ox0 - 1;
+  for (int u = warp; u < U2; u += WARPS) {
+    const int mt0 = u * G2;
+    int pix[G2];  // q1 pixel under tap (0, 0) of this lane's ldmatrix row
 #pragma unroll
     for (int m = 0; m < G2; ++m) {
-      uint32_t a[4];
-      ldsm_x4(a, c1a + sw(pix[m] + toff, csel));
-      mma_n32(acc[m], a, bl, bh);
+      const int row = min((mt0 + m) * 16 + (lane & 15), N2 - 1);
+      pix[m] = (row / Q2) * Q1 + row % Q2;
     }
-  }
+    int acc[G2][4][4];
 #pragma unroll
-  for (int m = 0; m < G2; ++m)
+    for (int tap = 0; tap < 9; ++tap) {
+      const int toff = (tap / 3) * Q1 + tap % 3;
+      const uint4 bl = w2f[(2 * tap) * 32 + lane], bh = w2f[(2 * tap + 1) * 32 + lane];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = (mt0 + m) * 16 + g + 8 * hh;
-      if (row >= N2) continue;
-      const int r = row / Q2, q = row % Q2;
-      const bool in = inside(2 * tl.oy0 - 1 + r, 2 * tl.ox0 - 1 + q, H, W);
-      const int p = r * Q2 + ((q & 1) ? Q2E + (q >> 1) : (q >> 1));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = 8 * j + 2 * tg;
-        *reinterpret_cast<unsigned short*>(c2s + sw(p, j >> 1) + 8 * (j & 1) + 2 * tg) =
-            in ? static_cast<unsigned short>(requant2(acc[m][j][2 * hh], acc[m][j][2 * hh + 1], comb, bias,
-                                                      n, s3))
-               : 0;
+      for (int m = 0; m < G2; ++m) {
+        uint32_t a[4];
+        ldsm_x4(a, c1a + sw(pix[m] + toff, csel));
+        if (tap == 0)
+          mma_n32<true>(acc[m], a, bl, bh, SUM_START<CVT>);
+        else
+          mma_n32<false>(acc[m], a, bl, bh, 0);
       }
     }
+    float cr[8], br[8];
+    load8(cr, comb, tg);
+    load8(br, bias, tg);
+    RowWalk<Q2> w(mt0 * 16 + g);
+#pragma unroll
+    for (int k = 0; k < 2 * G2; ++k, w.next()) {
+      const uint2 v = requant_row<CVT>(acc[k >> 1], k & 1, cr, br, s3);
+      const bool in = inside(gy0 + w.r, gx0 + w.q, H, W);
+      const int p = w.r * Q2 + (w.q >> 1) + (w.q & 1) * Q2E;
+      if (w.row < N2)
+        *reinterpret_cast<uint2*>(c2s + sw(p, tg >> 1) + 8 * (tg & 1)) = in ? v : make_uint2(0, 0);
+    }
+  }
 }
 
 // c3: m16 tile oy is row oy of the c3 tile, its 16 rows the columns ox.
+template <bool CVT>
 __device__ __forceinline__ void conv3(uint32_t c2a, const uint4* w3f, const float* comb, const float* bias,
                                       __nv_bfloat16* out, Tile tl, int Ho, int Wo, int warp, int lane) {
-  if (warp >= MT3 / G3) return;
   const int g = lane >> 2, tg = lane & 3, csel = lane >> 4, ox = lane & 15;
   const int oy0 = warp * G3;
   int acc[G3][4][4];
-  zero<G3>(acc);
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
     const int ky = tap / 3, kx = tap % 3;
@@ -340,29 +477,61 @@ __device__ __forceinline__ void conv3(uint32_t c2a, const uint4* w3f, const floa
     for (int m = 0; m < G3; ++m) {
       uint32_t a[4];
       ldsm_x4(a, c2a + sw((2 * (oy0 + m) + ky) * Q2 + col, csel));
-      mma_n32(acc[m], a, bl, bh);
+      if (tap == 0)
+        mma_n32<true>(acc[m], a, bl, bh, SUM_START<CVT>);
+      else
+        mma_n32<false>(acc[m], a, bl, bh, 0);
     }
   }
+  float cr[8], br[8];
+  load8(cr, comb, tg);
+  load8(br, bias, tg);
 #pragma unroll
   for (int m = 0; m < G3; ++m)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
+      const uint4 v = bf16_row<CVT>(acc[m], hh, cr, br);
       const int gy = tl.oy0 + oy0 + m, gx = tl.ox0 + g + 8 * hh;
-      if (gy >= Ho || gx >= Wo) continue;
-      __nv_bfloat162* dst =
-          reinterpret_cast<__nv_bfloat162*>(out + (((size_t)tl.b * Ho + gy) * Wo + gx) * C + 2 * tg);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = 8 * j + 2 * tg;
-        __nv_bfloat162 v;
-        v.x = dequant(acc[m][j][2 * hh], comb[n], bias[n]);
-        v.y = dequant(acc[m][j][2 * hh + 1], comb[n + 1], bias[n + 1]);
-        dst[4 * j] = v;
-      }
+      if (gy < Ho && gx < Wo)
+        *reinterpret_cast<uint4*>(out + (((size_t)tl.b * Ho + gy) * Wo + gx) * C + 8 * tg) = v;
     }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+// A bisection variant's output: stage STAGES (0 q0, 1 q1, 2 q2) at (2oy,
+// 2ox) for every c3 position of the tile, as bf16 values (v0: channel c
+// holds q0's channel c % 3), 16 B a thread.
+template <int STAGES>
+__device__ __forceinline__ void store_stage(const signed char* xs, const unsigned char* c1s,
+                                            const unsigned char* c2s, __nv_bfloat16* out, Tile tl,
+                                            int Ho, int Wo, int tid) {
+  for (int i = tid; i < TH * TW * 4; i += THREADS) {
+    const int pos = i >> 2, c8 = i & 3, oy = pos / TW, ox = pos % TW;
+    const int gy = tl.oy0 + oy, gx = tl.ox0 + ox;
+    if (gy >= Ho || gx >= Wo) continue;
+    __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int c = 8 * c8 + k;
+      int q;
+      if constexpr (STAGES == 0) {
+        q = xs[((2 * oy + 3) * Q0 + 2 * ox + 3) * CIN + c % CIN];
+      } else if constexpr (STAGES == 1) {
+        q = static_cast<signed char>(c1s[sw((2 * oy + 2) * Q1 + 2 * ox + 2, c >> 4) + (c & 15)]);
+      } else {
+        q = static_cast<signed char>(c2s[sw((2 * oy + 1) * Q2 + Q2E + ox, c >> 4) + (c & 15)]);
+      }
+      v[k] = __float2bfloat16_rn(static_cast<float>(q));
+    }
+    *reinterpret_cast<uint4*>(out + (((size_t)tl.b * Ho + gy) * Wo + gx) * C + 8 * c8) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// The bisection instantiations (STAGES < 3) return before the later stages,
+// which nvcc may report as unreachable (diagnostic 128).
+#pragma nv_diag_suppress 128
+template <int STAGES, bool CVT2, bool CVT3>
+__global__ void __launch_bounds__(THREADS, 2)
 trunk_int8_kernel(const unsigned short* __restrict__ x, const uint4* __restrict__ wfrag,
                   const uint4* __restrict__ epilogue, __nv_bfloat16* __restrict__ out, int B, int H,
                   int W, int Ho, int Wo, float s1, float s2, float s3) {
@@ -385,49 +554,81 @@ trunk_int8_kernel(const unsigned short* __restrict__ x, const uint4* __restrict_
   const int tiles_x = (Wo + TW - 1) / TW;
   const long long per_img = (long long)tiles_x * ((Ho + TH - 1) / TH);
   const long long total = per_img * B;
-  unsigned short xr[XPT];
+  unsigned short xr[XROWS];
   long long t = blockIdx.x;
   if (t < total) fetch_input(xr, x, tile_at(t, per_img, tiles_x), H, W, tid);
   for (; t < total; t += gridDim.x) {
     const Tile tl = tile_at(t, per_img, tiles_x);
-#pragma unroll
-    for (int j = 0; j < XPT; ++j)
-      if (tid + j * THREADS < XN)
-        xs[tid + j * THREADS] = static_cast<signed char>(quant(__uint_as_float(static_cast<uint32_t>(xr[j]) << 16), s1));
+    store_input(xs, xr, s1, tid);
     // The next tile's input loads fly while this tile computes.
     if (t + gridDim.x < total) fetch_input(xr, x, tile_at(t + gridDim.x, per_img, tiles_x), H, W, tid);
     __syncthreads();  // input (and, first time, the weights) in shared memory
+    if constexpr (STAGES == 0) {
+      store_stage<0>(xs, c1s, c2s, out, tl, Ho, Wo, tid);
+      __syncthreads();  // the next tile overwrites xs
+      continue;
+    }
     conv1(xs, w1f, comb, bias, s2, c1s, tl, H, W, warp, lane);
     __syncthreads();
-    conv2(smem_addr(c1s), w2f, comb + C, bias + C, s3, c2s, tl, H, W, warp, lane);
+    if constexpr (STAGES == 1) {
+      store_stage<1>(xs, c1s, c2s, out, tl, Ho, Wo, tid);
+      continue;
+    }
+    conv2<CVT2>(smem_addr(c1s), w2f, comb + C, bias + C, s3, c2s, tl, H, W, warp, lane);
     __syncthreads();
-    conv3(smem_addr(c2s), w3f, comb + 2 * C, bias + 2 * C, out, tl, Ho, Wo, warp, lane);
+    if constexpr (STAGES == 2) {
+      store_stage<2>(xs, c1s, c2s, out, tl, Ho, Wo, tid);
+      continue;
+    }
+    conv3<CVT3>(smem_addr(c2s), w3f, comb + 2 * C, bias + 2 * C, out, tl, Ho, Wo, warp, lane);
   }
+}
+
+template <int STAGES, bool CVT2, bool CVT3>
+cudaError_t launch(const void* x, const void* weights, const void* epilogue, void* out, int B, int H,
+                   int W, float s1, float s2, float s3, cudaStream_t stream) {
+  auto kernel = trunk_int8_kernel<STAGES, CVT2, CVT3>;
+  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
+  const long long tiles = (long long)((Wo + TW - 1) / TW) * ((Ho + TH - 1) / TH) * B;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, SMEM)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = static_cast<int>(tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm);
+  kernel<<<grid, THREADS, SMEM, stream>>>(
+      static_cast<const unsigned short*>(x), static_cast<const uint4*>(weights),
+      static_cast<const uint4*>(epilogue), static_cast<__nv_bfloat16*>(out), B, H, W, Ho, Wo, s1, s2, s3);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The C entry for ctypes (kernels/trunk_int8.py): x and out bfloat16 NHWC,
-// weights as int8_fragments lays them out, epilogue f32 [comb1 | comb2 |
-// comb3 | b1 | b2 | b3], s1 s2 s3 the static scales. Launches a persistent
-// grid (one CTA per tile, at most as many as fit on the card at once) on
-// `stream`. Returns a cudaError_t.
-extern "C" int dd_trunk_int8(const void* x, const void* weights, const void* epilogue, void* out, int B,
-                             int H, int W, float s1, float s2, float s3, void* stream) {
-  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
-  const long long tiles = (long long)((Wo + TW - 1) / TW) * ((Ho + TH - 1) / TH) * B;
-  cudaError_t err = cudaFuncSetAttribute(trunk_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trunk_int8_kernel, THREADS, SMEM)) !=
-      cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = static_cast<int>(tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm);
-  trunk_int8_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned short*>(x), static_cast<const uint4*>(weights),
-      static_cast<const uint4*>(epilogue), static_cast<__nv_bfloat16*>(out), B, H, W, Ho, Wo, s1, s2, s3);
-  return (int)cudaGetLastError();
+// The C entry for ctypes (kernels/trunk_int8.py): stages 3 is the trunk,
+// 0..2 a bisection variant (q0, q1 or q2 at the stride-2 positions); cvt
+// bit 1 (2) and bit 2 (4): c2's, c3's accumulators take __int2float_rn
+// (prepare_int8_weights sets them where 127 * sum |wq| reaches 2^22); x and
+// out bfloat16 NHWC, weights as int8_fragments lays them out, epilogue f32
+// [comb1 | comb2 | comb3 | b1 | b2 | b3], s1 s2 s3 the static scales.
+// Launches a persistent grid (one CTA per tile, at most as many as fit on
+// the card at once) on `stream`. Returns a cudaError_t.
+extern "C" int dd_trunk_int8(int stages, int cvt, const void* x, const void* weights, const void* epilogue,
+                             void* out, int B, int H, int W, float s1, float s2, float s3, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool c2 = cvt & 2, c3 = cvt & 4;
+  switch (stages) {
+    case 0: return (int)launch<0, false, false>(x, weights, epilogue, out, B, H, W, s1, s2, s3, st);
+    case 1: return (int)launch<1, false, false>(x, weights, epilogue, out, B, H, W, s1, s2, s3, st);
+    case 2:
+      return (int)(c2 ? launch<2, true, false> : launch<2, false, false>)(x, weights, epilogue, out, B, H, W,
+                                                                          s1, s2, s3, st);
+    case 3:
+      return (int)(c2 ? (c3 ? launch<3, true, true> : launch<3, true, false>)
+                      : (c3 ? launch<3, false, true> : launch<3, false, false>))(
+          x, weights, epilogue, out, B, H, W, s1, s2, s3, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

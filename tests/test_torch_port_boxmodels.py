@@ -16,6 +16,8 @@ JAX package's bf16 within 2^-5 absolute on probabilities and relative to
 max|logits| on the roadmap logits, and losses within 2% (activations
 rounded to bf16 at the same layers, from sums taken in another order).
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,8 @@ the JAX package, on the CPU:
 Everything here is exact: the flags are compared as values, the weights
 move through transposes only, and the data are bytes.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import argparse
 import filecmp
 import os

@@ -12,6 +12,8 @@ equal on the valid slots, validity equal everywhere (the indices in
 invalid slots follow ties at NEG_INF and are not compared); ATS exact to
 1e-12 (both run the same float64 polygon code).
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import json
 from pathlib import Path
 

@@ -21,6 +21,8 @@ and equal bf16 scores are common, so ties fall differently: RPN objectness
 within 2^-6 of its largest value, and at least 90% of the JAX package's
 detections found in the port's (same label, IoU >= 0.99).
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import dataclasses
 import functools
 

@@ -4,6 +4,8 @@ cli/eval_boxes.load_detection_task), against the JAX package on the CPU at
 the TINY config; setup and tolerances as in
 tests/test_torch_port_faster_rcnn.py, whose helpers this file shares.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax
 import numpy as np
 import pytest

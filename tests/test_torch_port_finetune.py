@@ -14,6 +14,8 @@ float noise can step +-lr the other way, which moves the next loss by far
 less than 1e-3); BatchNorm running statistics rtol 1e-4 (they move in
 training mode on both sides, frozen or not).
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import dataclasses
 
 import jax

@@ -32,6 +32,8 @@ without fma contraction on both sides), and each output is a convex
 combination of 16 taps whose products and sums round in another order, at
 most about 16 f32 ulps of the largest value.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import ast
 from pathlib import Path
 
@@ -391,6 +393,72 @@ def test_trunk_int8_kernel_equals_plain_on_gpu(shape):
     assert got.dtype == ref.dtype == torch.bfloat16
     assert got.shape == ref.shape == (shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, 32)
     assert int((got != ref).sum()) == 0 and ref.abs().max() > 0
+
+
+# The int8 stage variants and the int -> float paths: the two odd shapes and
+# batch 8 of both main-path shapes
+INT8_CHECK_SHAPES = [(2, 17, 35, 3), (3, 37, 101, 3), (8, 256, 1836, 3), (8, 800, 800, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(K8.INT8_VARIANT_STAGES))
+@pytest.mark.parametrize("shape", INT8_CHECK_SHAPES)
+def test_trunk_int8_variants_equal_plain_on_gpu(shape, variant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, ws, scales = _int8_inputs(shape)
+    launches = K8.trunk_int8_variant.launches
+    with torch.no_grad():
+        got = K8.trunk_int8_variant(x, *ws, scales, variant=variant)
+        ref = K8.trunk_int8_variant_plain(x, *ws, scales, variant=variant)
+    torch.cuda.synchronize()
+    assert K8.trunk_int8_variant.launches == launches + 1
+    assert got.shape == ref.shape == (shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, 32)
+    assert int((got != ref).sum()) == 0 and ref.abs().max() > 0
+    if variant == "full":
+        with torch.no_grad():
+            assert torch.equal(got, K8.trunk_int8(x, *ws, scales))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weights", ["c2 signs", "c3 signs", "all positive"])
+@pytest.mark.parametrize("shape", INT8_CHECK_SHAPES)
+def test_trunk_int8_int2float_path_equals_plain_on_gpu(shape, weights):
+    """Weights whose 127 * sum |wq| reaches 2^22 take __int2float_rn
+    (int_path_flags): c2's or c3's weights as +-0.1 (every |wq| 127), or a
+    constant input under constant positive weights, where every interior q0,
+    q1 and q2 is 127 and c2's and c3's sums reach 288 * 127 * 127 > 2^22:
+    there the magic conversion would be wrong."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, ws = _trunk_inputs(shape, "bfloat16")
+    if weights == "all positive":
+        x = torch.ones_like(x)
+        ws = [torch.full_like(w, 0.1 if w.dim() == 4 else 0.05) for w in ws]
+        flags = 6
+    else:
+        layer = 1 if weights == "c2 signs" else 2
+        ws[2 * layer] = torch.sign(ws[2 * layer]) * 0.1
+        flags = 2 * layer
+    scales = Q.calibrate_trunk(ws, x)
+    with torch.no_grad():
+        assert K8.kernel_int8_weights(ws[0::2], ws[1::2], scales)[2] == flags
+        held = []
+        for v in K8.INT8_VARIANT_STAGES:
+            got = K8.trunk_int8_variant(x, *ws, scales, variant=v)
+            ref = K8.trunk_int8_variant_plain(x, *ws, scales, variant=v)
+            held.append(int((got != ref).sum()))
+        got = K8.trunk_int8(x, *ws, scales)
+        ref = K8.trunk_int8_plain(x, *ws, scales)
+        held.append(int((got != ref).sum()))
+        wq1, w1_inv = Q.quantize_conv_weight(ws[0])
+        v1 = Q.conv2d_int8(Q.quantize(x, scales[0]), wq1, 1.0 / scales[0], w1_inv)
+        q1 = Q.quantize(torch.relu(v1 + ws[1]).to(x.dtype), scales[1])
+    torch.cuda.synchronize()
+    assert held == [0] * 5 and ref.abs().max() > 0
+    if weights == "all positive":
+        acc2 = Q.conv_int32(q1, Q.quantize_conv_weight(ws[2])[0])
+        assert int(acc2.abs().max()) > 2 ** 22
 
 
 @pytest.mark.gpu

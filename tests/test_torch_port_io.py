@@ -3,6 +3,8 @@ weight layouts between JAX pytrees and state_dicts, on the CPU.
 
 Every comparison here is bit-exact: nothing is computed, only stored,
 loaded and transposed."""
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax
 import numpy as np
 import pytest

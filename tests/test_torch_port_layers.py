@@ -5,6 +5,8 @@ Inputs come from numpy seeds and go through both. Tolerances: f32 results
 that are a reassociated sum get rtol/atol 1e-5; pure data movement and
 integer-valued results are bit-exact; bf16 results get 2^-7 relative to the
 output scale (one bf16 rounding of results taken in another order)."""
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,8 @@ must agree wherever |logit| exceeds that tolerance; bf16 (precision 16)
 logits within 2^-5 of their scale and masks in >99% agreement (the JAX
 package's bar for a lower-precision trunk against the float path).
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,8 @@ rule is off by 1e-2 or more; even rounding 1 - b2 in the other precision
 (optax takes it in f32 for plain Adam and in double under clipping, 1.3e-5
 apart) shows as 1-4e-5.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import json
 import os
 from types import SimpleNamespace

@@ -16,6 +16,8 @@ roadmap masks in > 99% agreement, box probabilities within 2^-5.
 RoadMapBCEv2 and FasterRCNNRoadMap: tests/test_torch_port_precision8_tasks.py;
 the CLIs: tests/test_torch_port_precision8_cli.py.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,8 @@ scores the same scenes, its average box threat score within 0.05 (with
 random weights few detections score; their boxes come from bf16 heads
 whose sums run in another order).
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from test_torch_port_faster_rcnn import TINY as DET_TINY
 from test_torch_port_faster_rcnn import _pair as det_pair
 
 KEY = jax.random.PRNGKey(0)
+TORCH_THREADS = 2  # the plain int8 trunk's float64 convs at full view size
 
 
 def test_run_test_and_eval_boxes_clis_at_precision8_match_jax(tmp_path):

@@ -12,6 +12,8 @@ tests/test_torch_port_faster_rcnn_tasks.py: RPN objectness within 2^-6 of
 its largest value, and >= 90% of the JAX detections found (same label, IoU
 >= 0.99).
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

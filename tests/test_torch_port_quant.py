@@ -15,6 +15,8 @@ neighbouring bf16 or int8 value, which moves the products that read it by
 one step of their input. The dynamic path (f32) and the resident probe
 (f32, against the shipped path) are held to the same bar.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -170,8 +172,13 @@ def test_resident_equals_shipped_at_f32_and_matches_jax():
 def test_int8_fragments_follow_the_mma_layout():
     """Unpack the fragment buffer by the PTX layout of mma.m16n8k32 .s8 B
     (lane (g, tg): b0 holds k = 4tg..4tg+3 of column g, b1 k = 16 + 4tg..,
-    low byte first) and recover B[k][n], k = (ky*3 + kx)*Cin + ci."""
+    low byte first) and recover B[k][c], k = (ky*3 + kx)*Cin + ci: column c
+    computes output channel N_PERM[c], so that accumulator lane tg holds
+    channels 8tg .. 8tg + 7."""
     rng = np.random.RandomState(13)
+    assert sorted(K8.N_PERM) == list(range(32))
+    for c in range(32):  # column 8j + 2t + e -> channel 8t + 2j + e
+        assert K8.N_PERM[c] == 8 * ((c % 8) // 2) + 2 * (c // 8) + c % 2
     for ci in (3, 32):
         wq = torch.from_numpy(rng.randint(-127, 128, (32, ci, 3, 3)).astype(np.int8))
         frags = K8.int8_fragments(wq).numpy()
@@ -188,7 +195,7 @@ def test_int8_fragments_follow_the_mma_layout():
                         tile, reg = word >> 1, word & 1
                         for e in range(4):
                             got[32 * s + 16 * reg + 4 * tg + e, 8 * (2 * pair + tile) + g] = u[s, pair, lane, word, e]
-        np.testing.assert_array_equal(got[:b.shape[0]], b)
+        np.testing.assert_array_equal(got[:b.shape[0]], b[:, K8.N_PERM])
         assert not got[b.shape[0]:].any()
 
 
@@ -200,8 +207,9 @@ def test_int8_weight_cache_and_epilogue():
     ws, bs = tp[0::2], tp[1::2]
     scales = (113.37, 21.5, 7.25)
     K8.prepare_int8_weights.calls = 0
-    frags, epi = K8.kernel_int8_weights(ws, bs, scales)
+    frags, epi, flags = K8.kernel_int8_weights(ws, bs, scales)
     assert K8.kernel_int8_weights(ws, bs, scales)[0] is frags
+    assert flags == 0  # seeded weights: every layer's |acc| stays below 2^22
     assert K8.prepare_int8_weights.calls == 1
     assert frags.dtype == torch.int8 and frags.numel() == 19456
     assert epi.dtype == torch.float32 and epi.numel() == 192
@@ -213,5 +221,5 @@ def test_int8_weight_cache_and_epilogue():
     assert K8.prepare_int8_weights.calls == 2
     with torch.no_grad():
         ws[1][0, 0, 0, 0] += 1.0  # a new absmax for output channel 0
-    frags2, _ = K8.kernel_int8_weights(ws, bs, scales)
+    frags2 = K8.kernel_int8_weights(ws, bs, scales)[0]
     assert K8.prepare_int8_weights.calls == 3 and not torch.equal(frags2, frags)

@@ -10,6 +10,8 @@ pltpu.force_tpu_interpret_mode(), as tests/test_pallas_raster.py runs it.
 The CUDA kernel is held against the plain version on the card
 (tests/test_torch_port_gpu.py).
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -19,6 +19,8 @@ find what bisection finds from any estimate. The kernel itself is held to
 the plain version on the card (tests/test_torch_port_gpu.py,
 chip_smoke.py), on the same box sets.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,8 @@ bf16 features against the JAX package's bf16 path: 2^-7 absolute (the JAX
 path rounds its interpolation weights and row pass to bf16, the port keeps
 f32 weights; a few bf16 ulps of values below 1).
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import json
 from pathlib import Path
 

@@ -5,6 +5,8 @@ on the CPU: one JAX-written RoadMapBCEv2 checkpoint (small AE, full
 
 Masks must agree on >99.9% of pixels (only logits within float error of 0
 can flip) and avg_ts within 1e-3."""
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax
 import numpy as np
 

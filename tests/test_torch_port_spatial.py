@@ -8,6 +8,8 @@ conv, an f32 sum reassociated over at most a few thousand terms, rtol/atol
 1e-5; the heads (a chain of up to seven such layers, as
 tests/test_torch_port_models.py bounds its chains) rtol 1e-3 / atol 1e-4.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

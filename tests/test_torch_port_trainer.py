@@ -8,6 +8,8 @@ dataset with its views cut to their top 32 rows (32 x 306: BasicAE masks
 batches, with dropout and the six-to-one mask drawn from the trainer's
 step generator, which the checkpoint carries. A run stopped by max_steps
 (mid-epoch, and mid-accumulation-window) or at an epoch's end and resumed
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 from its last.ckpt must log the uninterrupted run's train_loss at every
 step it runs, rtol 1e-6: the same steps on the same data in the same order
 with the same draws and optimizer state (the weights' round trip through

@@ -35,6 +35,8 @@ rounding. They are held only to lie within 9 lr of each other (three
 unfrozen updates a side, each at most about 1.5 lr), and their moments,
 pure noise, are not compared.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import dataclasses
 import glob
 import json

@@ -8,6 +8,8 @@ set to float rounding (rtol 1e-6), and the host hook's (value, weight)
 pairs are weighted by their weights. A toy task (one Linear layer, 8
 training and 5 validation items, batch 2).
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import json
 import os
 

@@ -37,6 +37,8 @@ are compared. Tolerances:
   off by 2x within a few steps;
 - the frozen encoder: bit for bit unchanged.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import dataclasses
 
 import jax

@@ -12,6 +12,8 @@ bound tests/test_pallas_trunk.py uses); bf16 2^-6 of the output scale
 (c1 and c2 are rounded to bf16 in each version, at slightly different
 points, from sums taken in another order).
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

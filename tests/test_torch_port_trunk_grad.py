@@ -15,6 +15,8 @@ layout or a wrong stride at once (errors of order 1). The plain forward
 and the ordinary autograd through it must equal the Function's bit for
 bit: the same operations in the same order.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,8 @@ f32 within 2e-4 x max|ref|, the tolerance that chip_smoke.py and
 tests/test_torch_port_gpu.py hold the kernel to; one TF32 product alone
 (hi*hi) misses it. Inputs and weights come from a seed with numpy.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

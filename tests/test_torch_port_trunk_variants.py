@@ -14,6 +14,8 @@ reassociated over K <= 288); bf16 2^-6 of the output scale (c1 and c2
 rounded to bf16 in each version, from sums taken in another order). v0
 copies the input, so it is exact.
 """
+from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
