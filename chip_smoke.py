@@ -116,6 +116,22 @@
    encoder), the frozen encoder's parameters bit-identical; ms per step,
    scenes/s, device idle share (steps 1.. under torch.profiler) and peak
    device memory.
+8b. Box-training phase, precision 32, batch 8: spatial_bb, spatial_rm,
+   multitask and bb_mlp over the BasicAE checkpoint of step 8 (reference
+   geometry, max_bb 100, seeded box scenes from data/boxes.py), each from
+   one init: 3 Adam steps (train/optim.py:Adam, the trainer's) with the
+   freeze mask of epoch 0 (encoder frozen), then 2 with the mask of epoch 20
+   (everything trains, B1's gradient through TrunkFunction), against the
+   same steps with the plain trunk and rasterizer patched in (the same
+   dropout draws from one seeded generator): loss trajectories within
+   LOSS_TOL, the B2 targets equal to the plain rasterizer's, B1 once a step
+   and B2 once a step (never for bb_mlp), one kernel-weight layout for the
+   frozen steps and one after each update once the encoder trains, the
+   encoder bit-identical while frozen; ms per step, and for each stage
+   (its steps after the first, which autotunes cuDNN for the shapes new to
+   it) scenes/s, device idle share and the device operations and aten
+   operations (by input shape) that take the most time, under
+   torch.profiler; peak device memory.
 9. Trainer phase, the main-path CLIs at the width of step 8 (batch 8,
    precision 32) on a synthetic dataset (data/synthetic.py: 5 unlabeled and
    5 labeled scenes of 8 samples, full-size JPEG views and 800x800 road
@@ -131,12 +147,21 @@
    precision 32's); cli.roadmap --precision 16 for 2 steps (B1's bf16
    kernel, finite losses); cli.roadmap --precision 8 for 2 steps and its
    validation batch (bf16 B1 each time, B1-int8 never, the uncalibrated
-   message printed once);
+   message printed once); the box-family CLIs over the same encoder,
+   frozen in epoch 0 and trained in epoch 1 as cli.roadmap is:
+   cli.spatial_bb --variant rm (log_images every 2 batches), cli.multitask
+   and cli.bb_mlp, with B1 and B2 launches counted in each training step,
+   validation batch and log_images call; cli.multitask under deterministic
+   algorithms, uninterrupted and stopped by --max_steps 5 and resumed, the
+   resumed losses equal to the uninterrupted run's within RESUME_TOL;
+   cli.multitask --precision 16 for 2 steps (B1's bf16 kernel);
    then the frozen roadmap_bce epochs through Trainer with device_prefetch's
    staging thread and with each batch pinned on the step's thread, in turns
    (PREFETCH_AB), median step_ms of each.
-   B1 must launch once per train step, validation batch and run_test batch
-   (plus its warm-up), counted from 0 around each CLI call. Each CLI run
+   B1 must launch once per train step, validation batch, log_images call
+   and run_test batch (plus its warm-up), and B2 once per train step,
+   validation batch and log_images call of the rasterizing tasks, counted
+   from 0 around each CLI call. Each CLI run
    prints its scenes/s per epoch and median step_ms (from its
    metrics.jsonl), the device idle share over its last training epoch (or
    run_test's timed loop) under torch.profiler, its peak device memory and
@@ -159,7 +184,7 @@ import sys
 import tempfile
 import time
 import warnings
-from contextlib import contextmanager, nullcontext, redirect_stdout
+from contextlib import ExitStack, contextmanager, nullcontext, redirect_stdout
 from pathlib import Path
 from unittest import mock
 
@@ -169,8 +194,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from driving_dirty_tpu_torch.cli import basic_ae as cli_basic_ae
+from driving_dirty_tpu_torch.cli import bb_mlp as cli_bb_mlp
+from driving_dirty_tpu_torch.cli import multitask as cli_multitask
 from driving_dirty_tpu_torch.cli import roadmap as cli_roadmap
 from driving_dirty_tpu_torch.cli import run_test as cli_run_test
+from driving_dirty_tpu_torch.cli import spatial_bb as cli_spatial_bb
 from driving_dirty_tpu_torch.cli.eval_boxes import load_detection_task
 from driving_dirty_tpu_torch.cli.run_test import load_roadmap_model
 from driving_dirty_tpu_torch.core import layers as L
@@ -189,11 +217,12 @@ from driving_dirty_tpu_torch.kernels.trunk_int8 import (prepare_int8_weights, tr
                                                         trunk_int8_plain, trunk_int8_variant,
                                                         trunk_int8_variant_plain)
 from driving_dirty_tpu_torch.models.basic_ae import BasicAE
+from driving_dirty_tpu_torch.models.bb_mlp import Boxes
 from driving_dirty_tpu_torch.models.faster_rcnn import BBFasterRCNN, FasterRCNNRoadMap
 from driving_dirty_tpu_torch.models.multitask import MultiTask
 from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin
 from driving_dirty_tpu_torch.models.roadmap import RoadMapBCEv2
-from driving_dirty_tpu_torch.models.spatial_bb import BBSpatialModel, BBSpatialRoadMap
+from driving_dirty_tpu_torch.models.spatial_bb import BBSpatialModel, BBSpatialRoadMap, box_targets
 from driving_dirty_tpu_torch.ops import detection as det
 from driving_dirty_tpu_torch.ops import quant
 from driving_dirty_tpu_torch.ops.maps import raster_geometry
@@ -202,7 +231,7 @@ from driving_dirty_tpu_torch.scripts import probe_trunk_int8_variants as int8_pr
 from driving_dirty_tpu_torch.scripts.probe_trunk_variants import device_line, probe_inputs, run_probe
 from driving_dirty_tpu_torch.data.pipeline import tree_map
 from driving_dirty_tpu_torch.train import trainer as trainer_module
-from driving_dirty_tpu_torch.train.task import Task
+from driving_dirty_tpu_torch.train.optim import Adam
 
 SEED = 0
 BATCH = 8
@@ -333,12 +362,23 @@ GRAD_TOL = 1e-4
 # over 30 steps between XLA and ATen and allows 5%).
 LOSS_TOL = (1e-4, 5e-2)
 
+# Box-training phase: spatial_bb, spatial_rm, multitask and bb_mlp over the
+# training phase's BasicAE checkpoint, batch 8 f32, train/optim.py:Adam as
+# the trainer runs it (optax's global count across the unfreeze):
+# BOX_FROZEN steps with the freeze mask of epoch 0 (encoder frozen), then
+# BOX_UNFROZEN with the mask of epoch BOX_UNFREEZE (the default
+# unfreeze_epoch_no: everything trains). Losses against the plain kernels'
+# run within LOSS_TOL.
+BOX_FROZEN, BOX_UNFROZEN, BOX_UNFREEZE = 3, 2, 20
+BOX_TRAIN_TASKS = (BBSpatialModel, BBSpatialRoadMap, MultiTask, Boxes)
+
 # Trainer phase: the main-path CLIs on a synthetic dataset (data/synthetic.py)
 # of full-size JPEG views and 800x800 road maps. CLI_SCENES unlabeled and as
 # many labeled scenes of CLI_SAMPLES samples: the 80/20 scene split leaves 4
 # scenes (4 batches of 8) to train on and 1 (1 batch) to validate, per task.
 CLI_SCENES, CLI_SAMPLES, CLI_BATCHES, CLI_EPOCHS = 5, 8, 4, 2
-CLI_AE_STOP = 5  # --max_steps of the interrupted basic_ae run: mid-epoch 1
+CLI_AE_STOP = 5  # --max_steps of the interrupted basic_ae and multitask runs: mid-epoch 1
+CLI_IMG_FREQ = 2  # --output_img_freq of cli.spatial_bb: log_images at batches 0 and 2 of each epoch
 # train_loss of the resumed basic_ae steps against the uninterrupted run's,
 # |relative| <= RESUME_TOL. Both take the same steps on the same batches with
 # the same masked views and dropout (the step generator's state is in the
@@ -1590,8 +1630,146 @@ def training_phase(tmp: Path, smi: str) -> dict:
     rm_plain = train_run(model, init, batches, RM_STEPS, "roadmap_bce frozen encoder", smi, plain=True)
     rm["loss_rel_err"] = hold_trajectory("roadmap_bce frozen encoder", rm["loss"], rm_plain["loss"])
     out["roadmap_bce"], out["roadmap_bce_plain"] = rm, rm_plain
+    out["ae_ckpt"] = ckpt
     del model, init, state
     torch.cuda.empty_cache()
+    return out
+
+
+def top_aten_ops(prof, n: int, label: str, k: int = 6) -> list:
+    """The k aten operations (by their input shapes) whose kernels take the
+    most device time in a window of n steps: which layer a kernel serves."""
+    rows = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if e.device_type == DeviceType.CPU and e.key.startswith("aten::") and us:
+            rows.append((us / 1e3 / n, e.key, str(e.input_shapes)[:150]))
+    rows.sort(key=lambda r: -r[0])
+    print(f"{label}: aten operations by device time (including their children):")
+    for ms, key, shapes in rows[:k]:
+        print(f"  {ms:9.3f} ms/step  {key} {shapes}")
+    return [[key, shapes, ms] for ms, key, shapes in rows[:k]]
+
+
+def box_train_run(model, init, batches, label: str, smi: str, plain: bool) -> dict:
+    """BOX_FROZEN Adam steps with the encoder frozen, then BOX_UNFROZEN with
+    it training, from the weights `init` on batches[step % len(batches)],
+    dropout drawn from one seeded generator. The first step of each stage
+    is its warm-up (cuDNN autotunes the shapes new to it); the others run
+    under torch.profiler, one window a stage. With plain=True the plain
+    kernels are patched in. -> losses, per-step ms, B1 and B2 launches and
+    kernel-weight builds per step, the encoder after the frozen steps and
+    at the end, the window reports and the peak device memory."""
+    model.load_state_dict(init)
+    opt = Adam(model.named_parameters(), LR)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    steps = BOX_FROZEN + BOX_UNFROZEN
+    out = {"loss": [], "step_ms": [], "trunk_launches": [], "raster_launches": [], "weight_builds": []}
+
+    def encoder():
+        return {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith("encoder.")}
+
+    def step(i):
+        if (model.apply_freeze_mask(0 if i < BOX_FROZEN else BOX_UNFREEZE) is None) != (i >= BOX_FROZEN):
+            raise RuntimeError(f"{label}: freeze mask at step {i}")
+        if i == BOX_FROZEN:
+            out["encoder_frozen"] = encoder()
+        launches, rasters, builds = trunk.launches, raster.launches, prepare_weights.calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss(batches[i % len(batches)], train=True, generator=gen)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["loss"].append(loss.item())
+        out["step_ms"].append(1e3 * dt)
+        out["trunk_launches"].append(trunk.launches - launches)
+        out["raster_launches"].append(raster.launches - rasters)
+        out["weight_builds"].append(prepare_weights.calls - builds)
+        return dt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    name = f"{label}{' (plain kernels)' if plain else ''}"
+    with plain_kernels() if plain else nullcontext():
+        reset_launches()
+        prepare_weights.calls = 0
+        start = encoder()
+        for stage, first, last in (("frozen", 0, BOX_FROZEN), ("unfrozen", BOX_FROZEN, steps)):
+            step(first)  # the stage's warm-up
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+                window = sum(step(i) for i in range(first + 1, last))
+            out[f"window_{stage}"] = window_report(prof, window, f"{name}, {stage}", smi, n=last - first - 1,
+                                                   unit="step")
+            if not plain:
+                out[f"top_aten_{stage}"] = top_aten_ops(prof, last - first - 1, f"{name}, {stage}")
+            del prof
+        rasters = 0 if plain or isinstance(model, Boxes) else steps
+        out["launches"] = expect_launches(f"{label} training", 0 if plain else steps, rasters)
+    out["encoder_start"], out["encoder_end"] = start, encoder()
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(out["loss"])):
+        raise RuntimeError(f"{label}: non-finite loss {out['loss']}")
+    print(f"{name}: losses {out['loss']}, ms/step {out['step_ms']} "
+          f"({BOX_FROZEN} frozen, {BOX_UNFROZEN} unfrozen), B1 launches {out['trunk_launches']}, "
+          f"B2 launches {out['raster_launches']}, kernel-weight builds {out['weight_builds']}, "
+          f"peak memory {out['peak_memory_gb']:.2f} GB", flush=True)
+    return out
+
+
+def box_training_phase(ae_ckpt: Path, smi: str) -> dict:
+    """spatial_bb, spatial_rm, multitask and bb_mlp over the BasicAE
+    checkpoint `ae_ckpt` (the training phase's, full width): each from one
+    init, BOX_FROZEN frozen and BOX_UNFROZEN unfrozen Adam steps through the
+    kernels and again with the plain kernels patched in. Checks the loss
+    trajectories, the B2 targets, B1 and B2 once a step (B2 never for
+    bb_mlp), one kernel-weight layout for the frozen steps and one after
+    each update once the encoder trains, and the encoder bit-identical
+    while frozen."""
+    tf32_line("box training")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    batches = box_batches()
+    out = {}
+    for cls in BOX_TRAIN_TASKS:
+        label = f"{cls.name} training"
+        model = cls(dict(BOX_HPARAMS, pretrained_path=str(ae_ckpt)), device="cuda", generator=gen)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        if not isinstance(model, Boxes):
+            for i, b in enumerate(batches):
+                n = int((box_targets(b, model.raster_size) != raster_plain(b["boxes"], b["box_valid"],
+                                                                           model.raster_size)).sum())
+                print(f"{label}: batch {i} targets {n} differing pixels from plain", flush=True)
+                if n:
+                    raise RuntimeError(f"{label}: B2 targets differ from plain in {n} pixels")
+        run = box_train_run(model, init, batches, label, smi, plain=False)
+        rasters = 0 if isinstance(model, Boxes) else 1
+        expect(f"{label} B1 launches per step", run["trunk_launches"], [1] * (BOX_FROZEN + BOX_UNFROZEN))
+        expect(f"{label} B2 launches per step", run["raster_launches"], [rasters] * (BOX_FROZEN + BOX_UNFROZEN))
+        # one layout in all while frozen (the first forward); the first
+        # unfrozen forward still finds the frozen weights, each later one
+        # follows an Adam update of them
+        expect(f"{label} kernel-weight builds per step", run["weight_builds"],
+               [1] + [0] * BOX_FROZEN + [1] * (BOX_UNFROZEN - 1))
+        moved = [n for n, v in run["encoder_start"].items() if not torch.equal(v, run["encoder_frozen"][n])]
+        expect(f"{label} encoder parameters changed while frozen", moved, [])
+        trunk_moved = [n for n in ("encoder.c1.weight", "encoder.c3.weight")
+                       if not torch.equal(run["encoder_frozen"][n], run["encoder_end"][n])]
+        expect(f"{label} trunk weights moved once unfrozen", trunk_moved, ["encoder.c1.weight", "encoder.c3.weight"])
+        plain = box_train_run(model, init, batches, label, smi, plain=True)
+        run["loss_rel_err"] = hold_trajectory(label, run["loss"], plain["loss"])
+        for r in (run, plain):
+            for k in ("encoder_start", "encoder_frozen", "encoder_end"):
+                del r[k]
+        print(f"{label} ({smi}): " + "; ".join(
+            f"{stage} {run[f'window_{stage}']['scenes_per_s']:.1f} scenes/s, "
+            f"{run[f'window_{stage}']['wall_ms']:.3f} ms a step (plain kernels "
+            f"{plain[f'window_{stage}']['wall_ms']:.3f}), idle share {run[f'window_{stage}']['idle_share']:.3f}"
+            for stage in ("frozen", "unfrozen")) + f"; peak {run['peak_memory_gb']:.2f} GB; encoder "
+              "bit-identical through the frozen steps", flush=True)
+        out[cls.name], out[f"{cls.name}_plain"] = run, plain
+        del model, init
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1730,6 +1908,95 @@ def prefetch_ab(tmp: Path, data: Path, ae_ckpt: Path, smi: str) -> list:
     return out
 
 
+@contextmanager
+def launches_per_call(cls, methods=("loss", "val_metrics", "log_images")):
+    """Each outermost call of `cls`'s `methods` (a training step, a
+    validation batch, an image log) appends (method, B1 launches, B2
+    launches) to the yielded list; a call made inside another (the default
+    val_metrics calls loss) counts in the outer one."""
+    calls, depth = [], [0]
+
+    def wrap(name, fn):
+        def counted(self, *args, **kwargs):
+            before = (trunk.launches, raster.launches)
+            depth[0] += 1
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    calls.append((name, trunk.launches - before[0], raster.launches - before[1]))
+        return counted
+
+    with ExitStack() as stack:
+        for m in methods:
+            stack.enter_context(mock.patch.object(cls, m, wrap(m, getattr(cls, m))))
+        yield calls
+
+
+def staged_cli(label: str, main, argv: list, cls, smi: str, rasters: int, images: int) -> tuple:
+    """A CLI run of CLI_EPOCHS epochs of CLI_BATCHES steps with the encoder
+    frozen in epoch 0 (--unfreeze_epoch_no 1), each epoch's training loop
+    under torch.profiler. Checks B1 once and B2 `rasters` times in each
+    training step and validation batch, B1 and B2 once in each of `images`
+    log_images calls, one kernel-weight layout in all of the frozen epoch
+    and one after each Adam update of the trained one (the next forward,
+    the last one validation's), and the encoder bit-identical through epoch
+    0 and moved in epoch 1. -> (fit, its measures)."""
+    marks = []
+    apply_freeze_mask = cls.apply_freeze_mask
+
+    def spy(task, epoch):
+        marks.append((prepare_weights.calls,
+                      {n: p.detach().clone() for n, p in task.named_parameters() if n.startswith("encoder.")}))
+        return apply_freeze_mask(task, epoch)
+
+    prepare_weights.calls = 0
+    with mock.patch.object(cls, "apply_freeze_mask", spy), launches_per_call(cls) as calls:
+        fit, rec = cli_run(label, main, argv, smi, ranges=tuple(f"epoch {e} train" for e in range(CLI_EPOCHS)))
+    steps = CLI_EPOCHS * CLI_BATCHES
+    kinds = ("loss", "val_metrics", "log_images")
+    expect(f"{label} training steps, validation batches, log_images calls",
+           [sum(c[0] == k for c in calls) for k in kinds], [steps, CLI_EPOCHS, images])
+    expect(f"{label} (B1, B2) launches per training step, validation batch, log_images call",
+           [sorted({c[1:] for c in calls if c[0] == k}) for k in kinds],
+           [[(1, rasters)], [(1, rasters)], [(1, 1)] if images else []])
+    expect(f"{label} B1, B2 launches", (rec["trunk_launches"], rec["raster_launches"]),
+           (steps + CLI_EPOCHS + images, rasters * (steps + CLI_EPOCHS) + images))
+    builds = [marks[1][0] - marks[0][0], prepare_weights.calls - marks[1][0]]
+    expect(f"{label} kernel-weight builds by epoch", builds, [1, CLI_BATCHES])
+    moved = [n for n, v in marks[0][1].items() if not torch.equal(v, marks[1][1][n])]
+    expect(f"{label} encoder parameters changed in the frozen epoch", moved, [])
+    trained = dict(fit.task.named_parameters())
+    if all(torch.equal(v, trained[n]) for n, v in marks[1][1].items()):
+        raise RuntimeError(f"{label}: the encoder did not move after the unfreeze")
+    print(f"{label}: B1, B2 launches {rec['trunk_launches']}, {rec['raster_launches']} "
+          f"({steps} steps, {CLI_EPOCHS} validation batches, {images} log_images calls: "
+          f"(B1, B2) per call {[(1, rasters), (1, rasters), (1, 1)][:3 if images else 2]}); encoder "
+          f"parameters bit-identical through epoch 0, moved in epoch 1; kernel-weight builds by epoch "
+          f"{builds}", flush=True)
+    rec["weight_builds_by_epoch"] = builds
+    return fit, rec
+
+
+def hold_resume(label: str, root: Path, task: str, ref: dict, stop: int, smi: str) -> dict:
+    """The losses of a run stopped at `stop` steps and resumed (all versions
+    under root) against the uninterrupted run's `ref`: equal within
+    RESUME_TOL from the resume on."""
+    steps = CLI_EPOCHS * CLI_BATCHES
+    losses = {r["step"]: r["train_loss"] for r in metrics_records(root, task) if "train_loss" in r}
+    expect(f"{label} stopped + resumed steps", sorted(losses), list(range(steps)))
+    gaps = {k: abs(losses[k] - ref[k]) / abs(ref[k]) for k in range(steps)}
+    before = max(gaps[k] for k in range(stop))
+    after = max(gaps[k] for k in range(stop, steps))
+    print(f"{label} resume ({smi}): steps {stop}..{steps - 1} after the resume within {after:.3e} of the "
+          f"uninterrupted run's losses (tolerance {RESUME_TOL}); steps 0..{stop - 1} before it, the same "
+          f"steps twice: {before:.3e}", flush=True)
+    if not after <= RESUME_TOL:
+        raise RuntimeError(f"{label}: resumed losses {gaps} exceed {RESUME_TOL}")
+    return {"max_rel_gap_after_resume": after, "max_rel_gap_before": before, "rel_gaps": gaps}
+
+
 class Tee(io.StringIO):
     """Standard output that is also kept."""
 
@@ -1792,53 +2059,19 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
     expect("cli.basic_ae resumed B1 launches", resumed["trunk_launches"], steps - CLI_AE_STOP + 1)
     del fit
     torch.cuda.empty_cache()
-    losses = {r["step"]: r["train_loss"] for r in metrics_records(root_b, "basic_ae") if "train_loss" in r}
-    expect("cli.basic_ae stopped + resumed steps", sorted(losses), list(range(steps)))
-    ref = out["basic_ae"]["losses"]
-    gaps = {k: abs(losses[k] - ref[k]) / abs(ref[k]) for k in range(steps)}
-    before = max(gaps[k] for k in range(CLI_AE_STOP))
-    after = max(gaps[k] for k in range(CLI_AE_STOP, steps))
-    print(f"cli.basic_ae resume ({smi}): steps {CLI_AE_STOP}..{steps - 1} after the resume within "
-          f"{after:.3e} of the uninterrupted run's losses (tolerance {RESUME_TOL}); steps 0..{CLI_AE_STOP - 1} "
-          f"before it, the same steps twice: {before:.3e}", flush=True)
-    if not after <= RESUME_TOL:
-        raise RuntimeError(f"cli.basic_ae: resumed losses {gaps} exceed {RESUME_TOL}")
-    out["basic_ae_resume"] = {"max_rel_gap_after_resume": after, "max_rel_gap_before": before,
-                              "rel_gaps": gaps, "stopped": stop, "resumed": resumed}
+    out["basic_ae_resume"] = {**hold_resume("cli.basic_ae", root_b, "basic_ae", out["basic_ae"]["losses"],
+                                            CLI_AE_STOP, smi), "stopped": stop, "resumed": resumed}
     shutil.rmtree(root_b)
 
     # 3. roadmap_bce over that encoder: frozen in epoch 0, trained in epoch 1
     rm_argv = common + ["--variant", "bce_v2", "--num_labeled_scenes", str(CLI_SCENES),
                         "--pretrained_path", str(ae_ckpt), "--unfreeze_epoch_no", "1"]
-    marks = []
-    apply_freeze_mask = Task.apply_freeze_mask
-
-    def spy(task, epoch):
-        marks.append((epoch, prepare_weights.calls,
-                      {n: p.detach().clone() for n, p in task.named_parameters() if n.startswith("encoder.")}))
-        return apply_freeze_mask(task, epoch)
-
     root_rm = tmp / "cli_rm"
-    prepare_weights.calls = 0
-    with mock.patch.object(RoadMapBCEv2, "apply_freeze_mask", spy):
-        fit, rec = cli_run("cli.roadmap", cli_roadmap.main, rm_argv + ["--default_root_dir", str(root_rm)], smi,
-                           ranges=tuple(f"epoch {e} train" for e in range(CLI_EPOCHS)))
-    builds = [marks[1][1] - marks[0][1], prepare_weights.calls - marks[1][1]]
-    expect("cli.roadmap B1 launches", rec["trunk_launches"], steps + CLI_EPOCHS)
-    # one layout in all of the frozen epoch; after the unfreeze, one after
-    # each Adam update (the next forward, the last one validation's)
-    expect("cli.roadmap kernel-weight builds by epoch", builds, [1, CLI_BATCHES])
-    moved = [n for n, v in marks[0][2].items() if not torch.equal(v, marks[1][2][n])]
-    expect("cli.roadmap encoder parameters changed in the frozen epoch", moved, [])
-    trained = dict(fit.task.named_parameters())
-    if all(torch.equal(v, trained[n]) for n, v in marks[1][2].items()):
-        raise RuntimeError("cli.roadmap: the encoder did not move after the unfreeze")
-    print(f"cli.roadmap: encoder parameters bit-identical through epoch 0, moved in epoch 1; "
-          f"kernel-weight builds by epoch {builds}", flush=True)
+    fit, rec = staged_cli("cli.roadmap", cli_roadmap.main, rm_argv + ["--default_root_dir", str(root_rm)],
+                          RoadMapBCEv2, smi, rasters=0, images=0)
     out["roadmap_bce"] = fit_measures("cli.roadmap", root_rm, "roadmap_bce", rec)
-    out["roadmap_bce"]["weight_builds_by_epoch"] = builds
     rm_ckpt = fit.last_ckpt_path
-    del fit, marks, trained
+    del fit
     torch.cuda.empty_cache()
 
     # 4. run_test scores the labeled scenes with the roadmap checkpoint,
@@ -1920,9 +2153,73 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
     shutil.rmtree(root_8)
     torch.cuda.empty_cache()
 
-    # 6. device_prefetch's staging thread against pinning on the step's thread
+    # 6. the box-family CLIs over the basic_ae encoder, frozen in epoch 0:
+    # spatial_rm (log_images every CLI_IMG_FREQ batches), multitask and
+    # bb_mlp; then multitask under deterministic algorithms (see
+    # RESUME_TOL), uninterrupted and stopped by --max_steps and resumed;
+    # and multitask at precision 16
+    box_argv = common + ["--num_labeled_scenes", str(CLI_SCENES), "--pretrained_path", str(ae_ckpt),
+                         "--unfreeze_epoch_no", "1"]
+    for name, main, cls, extra, rasters, images in (
+            ("spatial_rm", cli_spatial_bb.main, BBSpatialRoadMap, ["--variant", "rm"], 1,
+             CLI_EPOCHS * CLI_BATCHES // CLI_IMG_FREQ),
+            ("multitask", cli_multitask.main, MultiTask, [], 1, 0),
+            ("bb_mlp", cli_bb_mlp.main, Boxes, [], 0, 0)):
+        label = f"cli.{'spatial_bb' if name == 'spatial_rm' else name}"
+        argv = extra + box_argv + ["--default_root_dir", str(tmp / f"cli_{name}")]
+        if images:
+            argv[argv.index("--output_img_freq") + 1] = str(CLI_IMG_FREQ)
+        fit, rec = staged_cli(label, main, argv, cls, smi, rasters, images)
+        out[name] = fit_measures(label, tmp / f"cli_{name}", name, rec)
+        del fit
+        shutil.rmtree(tmp / f"cli_{name}")
+        torch.cuda.empty_cache()
+
+    root_mr = tmp / "cli_multitask_resume"
+    with deterministic_algorithms():
+        fit, ref = cli_run("cli.multitask, deterministic", cli_multitask.main,
+                           box_argv + ["--default_root_dir", str(tmp / "cli_multitask_det")], smi)
+        expect("cli.multitask, deterministic B1, B2 launches", (ref["trunk_launches"], ref["raster_launches"]),
+               (steps + CLI_EPOCHS,) * 2)
+        ref = fit_measures("cli.multitask, deterministic", tmp / "cli_multitask_det", "multitask", ref)
+        del fit
+        torch.cuda.empty_cache()
+        fit, stop = cli_run("cli.multitask --max_steps", cli_multitask.main,
+                            box_argv + ["--default_root_dir", str(root_mr), "--max_steps", str(CLI_AE_STOP)], smi)
+        expect("cli.multitask --max_steps stop", fit.stop_reason, f"max_steps={CLI_AE_STOP} reached")
+        expect("cli.multitask --max_steps B1, B2 launches", (stop["trunk_launches"], stop["raster_launches"]),
+               (CLI_AE_STOP + 1, CLI_AE_STOP + 1))
+        last = fit.last_ckpt_path
+        del fit
+        torch.cuda.empty_cache()
+        fit, resumed = cli_run("cli.multitask resumed", cli_multitask.main,
+                               box_argv + ["--default_root_dir", str(root_mr), "--resume_from_checkpoint", last],
+                               smi)
+    expect("cli.multitask resumed B1, B2 launches", (resumed["trunk_launches"], resumed["raster_launches"]),
+           (steps - CLI_AE_STOP + 1,) * 2)
+    del fit
+    torch.cuda.empty_cache()
+    out["multitask_resume"] = {**hold_resume("cli.multitask", root_mr, "multitask", ref["losses"], CLI_AE_STOP, smi),
+                               "uninterrupted": ref, "stopped": stop, "resumed": resumed}
+    shutil.rmtree(root_mr)
+    shutil.rmtree(tmp / "cli_multitask_det")
+
+    dtypes.clear()
+    root_mt16 = tmp / "cli_multitask16"
+    argv = box_argv[:box_argv.index("--precision")] + ["--precision", "16"] + box_argv[box_argv.index("--precision") + 2:]
+    with mock.patch.object(trunk_module, "_launch", spy_launch):
+        fit, rec = cli_run("cli.multitask --precision 16", cli_multitask.main,
+                           argv + ["--default_root_dir", str(root_mt16), "--max_steps", "2"], smi)
+    expect("cli.multitask --precision 16 B1, B2 launches", (rec["trunk_launches"], rec["raster_launches"]), (2, 2))
+    expect("cli.multitask --precision 16 trunk dtypes", dtypes, [torch.bfloat16] * 2)
+    out["multitask_16"] = fit_measures("cli.multitask --precision 16", root_mt16, "multitask", rec)
+    del fit
+    shutil.rmtree(root_mt16)
+    torch.cuda.empty_cache()
+
+    # 7. device_prefetch's staging thread against pinning on the step's thread
     out["prefetch_ab"] = prefetch_ab(tmp, data, ae_ckpt, smi)
-    shutil.rmtree(root_a)  # the roadmap runs' pretrained_path, read until here
+    shutil.rmtree(root_a)  # the roadmap and box runs' pretrained_path, read until here
 
     # the trainer against the bare loop of the training phase (same widths,
     # batch and precision; the bare loop has no data loading, logging,
@@ -1976,8 +2273,11 @@ def main() -> int:
                "faster_rcnn_rm": detection["faster_rcnn_rm_16"]}
         precision8 = precision8_phase(Path(tmp), smi, p16)
         training = training_phase(Path(tmp), smi)
+        box_training = box_training_phase(training["ae_ckpt"], smi)
         trainer = trainer_phase(Path(tmp), smi, training)
 
+    box_names = [cls.name for cls in BOX_TRAIN_TASKS]
+    box_clis = ("spatial_rm", "multitask", "bb_mlp")
     for r in records:
         precision = 32 if r["dtype"] == "float32" else 16
         if r["path"] == "roadmap":
@@ -1985,6 +2285,8 @@ def main() -> int:
         else:
             r["launches"] = detection[f"faster_rcnn_rm_{precision}"]["predict_launches"]["trunk"]
     raster_rec["launches"] = boxes["multitask_32"]["launches"]["raster"]
+    raster_rec["training_launches"] = {k: box_training[k]["launches"]["raster"] for k in box_names}
+    raster_rec["cli_launches"] = {k: trainer[k]["raster_launches"] for k in box_clis}
     records.append(raster_rec)
     for r in roialign_recs:
         precision = 32 if r["dtype"] == "float32" else 16
@@ -1998,12 +2300,15 @@ def main() -> int:
                                  "roadmap_bce_8": trainer["roadmap_bce_8"]["trunk_int8_launches"]}
     records += int8_recs + int8_variant_recs + roialign_recs + variant_recs
     f32_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "float32")
-    f32_path["cli_launches"] = {k: trainer[k]["trunk_launches"] for k in ("basic_ae", "roadmap_bce", "run_test")}
+    f32_path["cli_launches"] = {k: trainer[k]["trunk_launches"]
+                                for k in ("basic_ae", "roadmap_bce", "run_test", *box_clis)}
+    f32_path["training_launches"] = {k: box_training[k]["launches"]["trunk"] for k in box_names}
     bf16_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "bfloat16")
-    bf16_path["cli_launches"] = {"roadmap_bce_16": trainer["roadmap_bce_16"]["trunk_launches"],
-                                 "roadmap_bce_8": trainer["roadmap_bce_8"]["trunk_launches"]}
+    bf16_path["cli_launches"] = {k: trainer[k]["trunk_launches"]
+                                 for k in ("roadmap_bce_16", "roadmap_bce_8", "multitask_16")}
     print(json.dumps({"serving": served, "box_family": boxes, "detection": detection,
-                      "precision8": precision8, "training": training, "trainer": trainer}, default=str))
+                      "precision8": precision8, "training": training, "box_training": box_training,
+                      "trainer": trainer}, default=str))
     print(smi)
     print(json.dumps({"kernels": records}))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)

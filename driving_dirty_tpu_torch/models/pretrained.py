@@ -5,6 +5,7 @@ The checkpoint's embedded hparams rebuild the encoder; its weights come
 along. With no `pretrained_path` the encoder is initialized from the
 caller's generator, with the caller-supplied dims. `c3_only` builds the
 conv trunk alone, for backbones that tap the c3 feature map.
+`encoder_freeze_mask` is the staged fine-tune every downstream task shares.
 """
 from __future__ import annotations
 
@@ -51,3 +52,11 @@ def init_backbone(ae, weights, *, c3_only: bool = False, device=None, generator=
             params, state = {k: v for k, v in params.items() if k in _C3_KEYS}, None
         load_jax_weights(enc, params, state, what="pretrained encoder")
     return enc
+
+
+def encoder_freeze_mask(task, epoch: int):
+    """None (everything trains) from `task.unfreeze_epoch_no` on; before it
+    {parameter name: trainable}, False for the encoder's parameters."""
+    if epoch >= task.unfreeze_epoch_no:
+        return None
+    return {name: not name.startswith("encoder.") for name, _ in task.named_parameters()}

@@ -31,7 +31,7 @@ from driving_dirty_tpu_torch.core.device import resolve_device
 from driving_dirty_tpu_torch.metrics.threat import ts_road_map
 from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin, add_labeled_data_args
 from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin, compute_dtype
-from driving_dirty_tpu_torch.models.pretrained import init_backbone, load_pretrained_ae
+from driving_dirty_tpu_torch.models.pretrained import encoder_freeze_mask, init_backbone, load_pretrained_ae
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
 from driving_dirty_tpu_torch.train.task import Task, hp
 
@@ -90,9 +90,7 @@ class RoadMapBase(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
     def freeze_mask(self, epoch: int):
         """None (everything trains) from `unfreeze_epoch_no` on; before it
         {parameter name: trainable}, False for the encoder's parameters."""
-        if epoch >= self.unfreeze_epoch_no:
-            return None
-        return {name: not name.startswith("encoder.") for name, _ in self.named_parameters()}
+        return encoder_freeze_mask(self, epoch)
 
     @torch.no_grad()
     def log_images(self, batch, step_name: str, generator=None):

@@ -12,21 +12,34 @@ R is the geometry's raster size (800 at "reference"). Images are
 [b, 6, H, W, 3] NHWC (uint8 or float), boxes [b, max_bb, 2, 4] meters with
 box_valid [b, max_bb], road [b, 800, 800]. At precision 8 `predict`
 calibrates the int8 trunk on its first batch
-(models/precision.py:Int8TrunkMixin). Freezing, image logging and the
-sharding rules come with training.
+(models/precision.py:Int8TrunkMixin).
+
+Training: `loss(batch, train=True, generator=...)` rasterizes the step's
+targets (B2) and runs the trunk (B1, differentiable through
+kernels/trunk.py:TrunkFunction once the encoder trains). The c3-only
+backbone has no dropout, so `generator` draws nothing here. `freeze_mask`
+freezes the pretrained trunk before `unfreeze_epoch_no` (default 20; a 0
+also reads as 20, as `hp(...) or 20` does in the JAX package).
+`add_model_specific_args` gives the CLI's flags (cli/spatial_bb.py), plus
+`--spatial_geometry`, the hparam both packages read, which the JAX CLIs
+leave unexposed: "small" (64x78 views) keeps the same network for quick
+runs. The JAX package's sharding rules wait for multi-device training
+(ROADMAP A.12).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from driving_dirty_tpu_torch.cli.hyperopt import opt_list
 from driving_dirty_tpu_torch.core.device import resolve_device
 from driving_dirty_tpu_torch.kernels.raster import raster
 from driving_dirty_tpu_torch.metrics.threat import ts_road_map
-from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin
+from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin, add_labeled_data_args
 from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin, compute_dtype
-from driving_dirty_tpu_torch.models.pretrained import init_backbone, load_pretrained_ae
+from driving_dirty_tpu_torch.models.pretrained import encoder_freeze_mask, init_backbone, load_pretrained_ae
 from driving_dirty_tpu_torch.nn.spatial import (
+    GEOMETRIES,
     BoxesMergingCNN,
     RoadMapBoxesMergingCNN,
     SpatialMappingCNN,
@@ -48,6 +61,13 @@ def box_targets(batch, size: int):
     return raster(batch["boxes"], batch["box_valid"], size)
 
 
+def add_geometry_arg(parser):
+    parser.add_argument("--spatial_geometry", type=str, default="reference", choices=sorted(GEOMETRIES),
+                        help="spatial pipeline geometry: reference (256x306 views, 800-px rasters) "
+                             "or small (64x78 views, 148/152-px rasters)")
+    return parser
+
+
 class BBSpatialModel(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
     name = "spatial_bb"
     merge_cls = BoxesMergingCNN
@@ -62,6 +82,7 @@ class BBSpatialModel(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
         self.compute_dtype = compute_dtype(hp(h, "precision", 32))
         self.batch_size = hp(h, "batch_size", 16)
         self.mse_loss = hp(h, "mse_loss", False)
+        self.unfreeze_epoch_no = hp(h, "unfreeze_epoch_no", 20) or 20
         self.ae, ae_weights = load_pretrained_ae(h)
         self.geometry = hp(h, "spatial_geometry", "reference")
         # c3_only: this backbone taps the conv feature map only
@@ -107,14 +128,14 @@ class BBSpatialModel(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
             return torch.mean((probs - target) ** 2)
         return _bce_probs(probs, target)
 
-    def loss(self, batch, *, train: bool):
+    def loss(self, batch, *, train: bool, generator=None):
         self.train(train)
         target = self._targets(batch)
         probs = self(batch["images"], batch["road"] if self.uses_roadmap else None)
         return self._loss(probs, target), {}
 
     @torch.no_grad()
-    def val_metrics(self, batch):
+    def val_metrics(self, batch, generator=None):
         """Eval loss and the threat score of the rounded prediction against
         the rasterized boxes."""
         self.eval()
@@ -124,6 +145,35 @@ class BBSpatialModel(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
             "val_loss": self._loss(probs, target),
             "val_ts_boxes": ts_road_map(target, torch.round(probs)),
         }
+
+    def freeze_mask(self, epoch: int):
+        return encoder_freeze_mask(self, epoch)
+
+    @torch.no_grad()
+    def log_images(self, batch, step_name: str, generator=None):
+        """The first scene's stitched input, its rasterized boxes and the
+        predicted occupancy probabilities, in eval mode (the reference's
+        spatial_model.py:126-134)."""
+        self.eval()
+        first = {k: v[:1] for k, v in batch.items()}
+        probs = self(first["images"], first["road"] if self.uses_roadmap else None)
+        target = self._targets(first)
+        return {
+            f"{step_name}_input_images": normalize_images(wide_stitch(first["images"]), torch.float32)[0].clamp(0, 1),
+            f"{step_name}_target_bbs": target[0][..., None],
+            f"{step_name}_pred_bbs": probs[0][..., None],
+        }
+
+    @staticmethod
+    def add_model_specific_args(parser):
+        opt_list(parser, "--learning_rate", type=float, default=1e-3,
+                 options=[1e-3, 1e-4, 1e-5], tunable=True)
+        parser.add_argument("--batch_size", type=int, default=16)
+        parser.add_argument("--unfreeze_epoch_no", type=int, default=20)
+        parser.add_argument("--mse_loss", action="store_true", default=False)
+        parser.add_argument("--max_bb", type=int, default=100)
+        add_labeled_data_args(parser)
+        return add_geometry_arg(parser)
 
 
 class BBSpatialRoadMap(BBSpatialModel):

@@ -200,7 +200,7 @@ class Trainer:
         if self.debug_nans:
             self._check_finite(task, loss)
         opt.step()
-        return {"loss": loss.detach(), **metrics}
+        return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
 
     def _check_finite(self, task, loss):
         if not torch.isfinite(loss):
