@@ -80,6 +80,13 @@
    bound from the feature pixels these rois touch. Also three odd shapes
    and a feature view 4 B off 16-B alignment; each shape prints the
    kernel instantiation it ran (16 B of channels a thread, or one).
+6b. RoIAlign backward phase (B3-bwd): gradients of RoIAlign's output at
+   the odd shapes of step 6 (and one 4 B off 16-B alignment) and at the
+   detection training path's [8, 400, 400, 32] features with 512 seeded
+   rois an image, in f32 and bf16: the kernel against its plain version
+   (roialign_backward_plain, the JAX formulation), two launches bit-equal,
+   its device time (torch.profiler), its time per call back to back, the
+   plain version's, and the bound (g read once, dF written once).
 7. Detection phase: a full-width FasterRCNNRoadMap (the JAX package's
    defaults: 800-px layout image, anchors 32..512 x {0.5, 1, 2}, 2000
    pre-NMS and 1000 post-NMS proposals, mlp 1024, 9 classes) from a seed,
@@ -132,6 +139,24 @@
    it) scenes/s, device idle share and the device operations and aten
    operations (by input shape) that take the most time, under
    torch.profiler; peak device memory.
+8c. Detection-training phase, precision 32, batch 8: faster_rcnn_rm and
+   faster_rcnn (the JAX package's DetectionConfig defaults) over the
+   BasicAE checkpoint of step 8, each from one init: the first step by
+   parts against the plain trunk and the plain RoIAlign forward and
+   backward (RPN losses, and RoI losses on the plain run's sampled rois,
+   within 1e-4; differing proposals counted), then 3 Adam steps with the
+   freeze mask of epoch 0 and 2 with that of epoch 10, against the same
+   steps with the plain kernels (the samplers' noise from one seeded
+   generator): losses after the first within LOSS_TOL, B1 and B3 once a
+   step, B3-bwd once a step for faster_rcnn_rm and once an unfrozen step
+   for faster_rcnn, one kernel-weight layout while frozen and one after
+   each update once the encoder trains, the encoder bit-identical while
+   frozen; ms a step, scenes/s, idle share, the device and aten
+   operations that take the most time, NMS host checks a step, peak
+   memory; then each stage of a faster_rcnn_rm step alone (B1, its
+   backward, the RPN convs, matching, sampling, proposals with NMS, B3,
+   B3-bwd, the box MLP): its device time under torch.profiler and its
+   time on the stream by CUDA events.
 9. Trainer phase, the main-path CLIs at the width of step 8 (batch 8,
    precision 32) on a synthetic dataset (data/synthetic.py: 5 unlabeled and
    5 labeled scenes of 8 samples, full-size JPEG views and 800x800 road
@@ -155,6 +180,14 @@
    algorithms, uninterrupted and stopped by --max_steps 5 and resumed, the
    resumed losses equal to the uninterrupted run's within RESUME_TOL;
    cli.multitask --precision 16 for 2 steps (B1's bf16 kernel);
+   cli.faster_rcnn --variant rm over the same encoder, frozen in epoch 0
+   and trained in epoch 1 (B1, B3, B3-bwd once each a training step, B1
+   and B3 three times and B3-bwd never a validation batch: the eval loss,
+   predict and the diagnostics), the same run under deterministic
+   algorithms, uninterrupted and stopped by --max_steps 5 and resumed (the
+   resumed losses equal to the uninterrupted run's within RESUME_TOL),
+   --precision 16 for 2 steps (B1, B3 and B3-bwd in bf16) and --variant
+   plain for 2 frozen steps (no B3-bwd);
    then the frozen roadmap_bce epochs through Trainer with device_prefetch's
    staging thread and with each batch pinned on the step's thread, in turns
    (PREFETCH_AB), median step_ms of each.
@@ -195,6 +228,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from driving_dirty_tpu_torch.cli import basic_ae as cli_basic_ae
 from driving_dirty_tpu_torch.cli import bb_mlp as cli_bb_mlp
+from driving_dirty_tpu_torch.cli import faster_rcnn as cli_faster_rcnn
 from driving_dirty_tpu_torch.cli import multitask as cli_multitask
 from driving_dirty_tpu_torch.cli import roadmap as cli_roadmap
 from driving_dirty_tpu_torch.cli import run_test as cli_run_test
@@ -209,7 +243,9 @@ from driving_dirty_tpu_torch.export import load_task_ckpt, save_task_ckpt
 from driving_dirty_tpu_torch.kernels import build
 from driving_dirty_tpu_torch.kernels import trunk as trunk_module
 from driving_dirty_tpu_torch.kernels.raster import raster, raster_plain
-from driving_dirty_tpu_torch.kernels.roialign import (channels_per_thread, roialign, roialign_plain,
+from driving_dirty_tpu_torch.kernels import roialign as roialign_module
+from driving_dirty_tpu_torch.kernels.roialign import (channels_per_thread, grad_channels_per_load, roialign,
+                                                      roialign_backward, roialign_backward_plain, roialign_plain,
                                                       sample_coords)
 from driving_dirty_tpu_torch.kernels.trunk import (VARIANT_STAGES, out_hw, prepare_weights, trunk,
                                                    trunk_plain, trunk_variant, trunk_variant_plain)
@@ -340,6 +376,32 @@ DET_TOL = {32: 1e-4, 16: 2.0 ** -5}
 # other can swap ranks, and a swap changes a detection only at a cut-off or
 # between overlapping boxes of one class.
 DET_AGREEMENT = 0.99
+# B3-bwd (RoIAlign's backward) against roialign_backward_plain, max |error|
+# <= this * max|plain|: f32: both sum in f32, the kernel sample by sample in
+# roi order, the plain version through the bin interpolation matrices; the
+# sample-level sums lie within 6.4e-6 of the largest value from a float64
+# sum where 1001 rois crowd a 21 x 30 map, the plain version's within
+# 2.2e-7 (measured on the CPU): 1e-5. bf16: the plain version rounds By, Bx, g and u to bf16 as
+# the JAX package does (up to 3.95e-3 of the largest value from float64 on
+# the CPU), the kernel rounds its f32 sum once (2^-9 of each value): 2^-6.
+ROI_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+ROI_SAMPLED = 512                    # rois an image in detection training (box_batch_per_image)
+ROI_BWD_OPS_PER_TAP = 2              # per channel: multiply by the tap's weight, add
+# Detection-training phase: FasterRCNNRoadMap and BBFasterRCNN at the JAX
+# package's DetectionConfig defaults over the training phase's BasicAE
+# checkpoint, batch 8 f32, train/optim.py:Adam: DET_FROZEN steps with the
+# freeze mask of epoch 0, then DET_UNFROZEN with that of epoch DET_UNFREEZE
+# (the default unfreeze_epoch_no), against the same steps with the plain
+# trunk and the plain RoIAlign forward and backward patched in, the
+# samplers' noise from one seeded generator. A last-bit trunk difference
+# can swap a proposal at the 2000 cut or in NMS and change the RoI samples,
+# so the first step is held by parts: the RPN losses (their labels come
+# from the anchors and GT alone) and the RoI losses on the plain run's
+# sampled rois, each to DET_STEP0_TOL relative; the differing proposals are
+# counted. Later steps' losses within LOSS_TOL[1].
+DET_FROZEN, DET_UNFROZEN, DET_UNFREEZE = 3, 2, 10
+DET_TRAIN_TASKS = (FasterRCNNRoadMap, BBFasterRCNN)
+DET_STEP0_TOL = 1e-4
 
 # Training phase: BasicAE six-to-one pretraining at the full width of
 # HPARAMS, then the roadmap_bce fine-tune over its frozen encoder, with
@@ -967,23 +1029,47 @@ def serving_phase(ckpt: Path, smi: str) -> dict:
     return out
 
 
+class PlainRoIAlign(torch.autograd.Function):
+    """RoIAlign's plain versions under autograd: roialign_plain forward,
+    roialign_backward_plain (the JAX formulation) backward."""
+
+    @staticmethod
+    def forward(ctx, features, rois, output_size, spatial_scale, sampling_ratio, aligned):
+        ctx.save_for_backward(rois)
+        ctx.geometry = (tuple(features.shape), features.dtype, output_size, spatial_scale, sampling_ratio, aligned)
+        return roialign_plain(features, rois, output_size, spatial_scale, sampling_ratio, aligned)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rois,) = ctx.saved_tensors
+        return roialign_backward_plain(grad, rois, *ctx.geometry), None, None, None, None, None
+
+
+def plain_roialign(features, rois, output_size=7, spatial_scale=1.0, sampling_ratio=2, aligned=False):
+    return PlainRoIAlign.apply(features, rois, output_size, spatial_scale, sampling_ratio, aligned)
+
+
 @contextmanager
 def plain_kernels():
-    """The plain trunk, rasterizer and RoIAlign in place of the kernels."""
+    """The plain trunk, rasterizer and RoIAlign (forward and backward) in
+    place of the kernels."""
     with mock.patch("driving_dirty_tpu_torch.nn.autoencoder.trunk", trunk_plain), \
             mock.patch("driving_dirty_tpu_torch.models.spatial_bb.raster", raster_plain), \
-            mock.patch("driving_dirty_tpu_torch.ops.detection.roialign", roialign_plain):
+            mock.patch("driving_dirty_tpu_torch.ops.detection.roialign", plain_roialign):
         yield
 
 
 def reset_launches() -> None:
     trunk.launches = trunk_int8.launches = raster.launches = roialign.launches = 0
+    roialign_backward.launches = 0
 
 
-def expect_launches(what: str, trunks: int, rasters: int, roialigns: int = 0, int8s: int = 0) -> dict:
+def expect_launches(what: str, trunks: int, rasters: int, roialigns: int = 0, int8s: int = 0,
+                    roialign_backwards: int = 0) -> dict:
     got = {"trunk": trunk.launches, "raster": raster.launches, "roialign": roialign.launches,
-           "trunk_int8": trunk_int8.launches}
-    want = {"trunk": trunks, "raster": rasters, "roialign": roialigns, "trunk_int8": int8s}
+           "trunk_int8": trunk_int8.launches, "roialign_backward": roialign_backward.launches}
+    want = {"trunk": trunks, "raster": rasters, "roialign": roialigns, "trunk_int8": int8s,
+            "roialign_backward": roialign_backwards}
     if got != want:
         raise RuntimeError(f"{what}: launches {got}, expected {want}")
     return got
@@ -1193,6 +1279,85 @@ def roialign_phase(gen) -> list[dict]:
             "roofline_share": bound_ms / ms})
         del feats, nchw, grid, lib
         torch.cuda.empty_cache()
+    return records
+
+
+def roialign_backward_bound_ms(grad, shape, dtype) -> tuple[float, str]:
+    """-> (bound ms, what binds). Bytes: g read once, dF written once, the
+    rois read once, over 3.35 TB/s. Operations: every tap of every sample of
+    every bin, ROI_BWD_OPS_PER_TAP f32 operations a channel, over 67
+    TFLOP/s."""
+    b, r, out, _, c = grad.shape
+    s = ROI_KW["sampling_ratio"]
+    dF = shape[0] * shape[1] * shape[2] * shape[3]
+    nbytes = grad.numel() * 4 + dF * torch.tensor([], dtype=dtype).element_size() + b * r * 16
+    ops = b * r * out * out * s * s * 4 * c * ROI_BWD_OPS_PER_TAP
+    t_ops, t_bytes = ops / PEAK_OPS[torch.float32], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def roialign_backward_design(grad) -> str:
+    """The load width that roialign_backward launches B3-bwd with for g."""
+    return "16-B loads of g" if grad_channels_per_load(grad) == 4 else "one float of g a load"
+
+
+def hold_backward(label: str, grad, rois, shape, dtype) -> dict:
+    """B3-bwd twice (the same bits both times) and against its plain
+    version."""
+    got = roialign_backward(grad, rois, shape, dtype, **ROI_KW)
+    again = roialign_backward(grad, rois, shape, dtype, **ROI_KW)
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{label}: two launches gave different dF "
+                           f"({int((got != again).sum())} elements)")
+    return hold(f"{label}, bit-equal over two launches", got,
+                roialign_backward_plain(grad, rois, shape, dtype, **ROI_KW), ROI_BWD_TOL[dtype])
+
+
+def roialign_backward_phase(gen) -> list[dict]:
+    """B3-bwd: the odd shapes of phase 6 and a gradient 4 B off 16-B
+    alignment against the plain version; then at the training path's shape,
+    [8, 400, 400, 32] features and 512 rois an image, in f32 and bf16: the
+    plain version, two launches bit-equal, the device time (torch.profiler),
+    the time per call back to back, the plain version's, and the bound."""
+    records = []
+    for b, h, w, c, r in ROI_ODD:
+        rois = torch.from_numpy(detection_rois(SEED + r, b, r, 2 * max(h, w))).cuda()
+        grad = torch.randn((b, r, 7, 7, c), generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            hold_backward(f"roialign_backward {str(dtype)[6:]} {[b, h, w, c]} R={r} "
+                          f"({roialign_backward_design(grad)})", grad, rois, (b, h, w, c), dtype)
+    b, h, w, c, r = ROI_ODD[0][:3] + (32, 67)
+    grad = torch.randn(b * r * 49 * c + 1, generator=gen, device="cuda")[1:].view(b, r, 7, 7, c)
+    rois = torch.from_numpy(detection_rois(SEED + r, b, r, 2 * max(h, w))).cuda()
+    hold_backward(f"roialign_backward float32 {[b, h, w, c]} R={r}, g 4 B off 16-B alignment "
+                  f"({roialign_backward_design(grad)})", grad, rois, (b, h, w, c), torch.float32)
+    rois = torch.from_numpy(detection_rois(SEED, BATCH, ROI_SAMPLED)).cuda()
+    grad = torch.randn((BATCH, ROI_SAMPLED, 7, 7, ROI_FEATS[3]), generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = (f"roialign_backward {str(dtype)[6:]} {list(ROI_FEATS)} R={ROI_SAMPLED} "
+                f"({roialign_backward_design(grad)})")
+        rec = hold_backward(name, grad, rois, ROI_FEATS, dtype)
+        fn = lambda: roialign_backward(grad, rois, ROI_FEATS, dtype, **ROI_KW)  # noqa: E731
+        ms = kernel_device_ms(fn, ("roialign_bwd_kernel",))["total"]
+        call_ms = cuda_ms(fn)
+        plain_ms = cuda_ms(lambda: roialign_backward_plain(grad, rois, ROI_FEATS, dtype, **ROI_KW))
+        bound_ms, bound_by = roialign_backward_bound_ms(grad, ROI_FEATS, dtype)
+        print(f"{name}: kernel {ms:.4f} ms on the device, {call_ms:.4f} ms per call back to back, "
+              f"plain (the JAX formulation on cuBLAS) {plain_ms:.3f} ms, no single PyTorch call computes "
+              f"it; bound {bound_ms:.4f} ms ({bound_by}), roofline share {bound_ms / ms:.3f}", flush=True)
+        records.append({
+            "name": "roialign_backward", "route": "cuda",
+            "source": "driving_dirty_tpu_torch/csrc/roialign_bwd.cu",
+            "replaces": "driving_dirty_tpu/ops/detection.py:613 (_roi_align_bwd, XLA: the Pallas kernel "
+                        "driving_dirty_tpu/pallas/roialign.py:84 has no backward)",
+            "design": roialign_backward_design(grad),
+            "path": "detection training", "shape": list(ROI_FEATS), "rois": ROI_SAMPLED, "dtype": str(dtype)[6:],
+            **{k: rec[k] for k in ("max_abs_err", "tol", "mean_abs_err", "max_abs_plain")},
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
+            "library_calls": "none (no single PyTorch call)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "roofline_share": bound_ms / ms})
+    del grad
+    torch.cuda.empty_cache()
     return records
 
 
@@ -1651,30 +1816,35 @@ def top_aten_ops(prof, n: int, label: str, k: int = 6) -> list:
     return [[key, shapes, ms] for ms, key, shapes in rows[:k]]
 
 
-def box_train_run(model, init, batches, label: str, smi: str, plain: bool) -> dict:
-    """BOX_FROZEN Adam steps with the encoder frozen, then BOX_UNFROZEN with
-    it training, from the weights `init` on batches[step % len(batches)],
-    dropout drawn from one seeded generator. The first step of each stage
-    is its warm-up (cuDNN autotunes the shapes new to it); the others run
-    under torch.profiler, one window a stage. With plain=True the plain
-    kernels are patched in. -> losses, per-step ms, B1 and B2 launches and
-    kernel-weight builds per step, the encoder after the frozen steps and
-    at the end, the window reports and the peak device memory."""
+def staged_train_run(model, init, batches, label: str, smi: str, plain: bool, frozen: int, unfrozen: int,
+                     unfreeze: int, counters: dict, top_k: int = 6) -> dict:
+    """`frozen` Adam steps (train/optim.py:Adam, the trainer's) with the
+    freeze mask of epoch 0 (encoder frozen), then `unfrozen` with the mask
+    of epoch `unfreeze` (everything trains), from the weights `init` on
+    batches[step % len(batches)], every random draw (dropout, the samplers'
+    noise) from one seeded generator. The first step of each stage is its
+    warm-up (cuDNN autotunes the shapes new to it); the others run under
+    torch.profiler, one window a stage. With plain=True the plain kernels
+    are patched in, and no kernel may launch. `counters` {key: () -> count}
+    are read around each step. -> losses, per-step ms and counts, the
+    encoder at the start, after the frozen steps and at the end, the window
+    reports (and, through the kernels, the top aten operations), the
+    kernels' launches in all and the peak device memory."""
     model.load_state_dict(init)
     opt = Adam(model.named_parameters(), LR)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    steps = BOX_FROZEN + BOX_UNFROZEN
-    out = {"loss": [], "step_ms": [], "trunk_launches": [], "raster_launches": [], "weight_builds": []}
+    steps = frozen + unfrozen
+    out = {"loss": [], "step_ms": [], **{k: [] for k in counters}}
 
     def encoder():
         return {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith("encoder.")}
 
     def step(i):
-        if (model.apply_freeze_mask(0 if i < BOX_FROZEN else BOX_UNFREEZE) is None) != (i >= BOX_FROZEN):
+        if (model.apply_freeze_mask(0 if i < frozen else unfreeze) is None) != (i >= frozen):
             raise RuntimeError(f"{label}: freeze mask at step {i}")
-        if i == BOX_FROZEN:
+        if i == frozen:
             out["encoder_frozen"] = encoder()
-        launches, rasters, builds = trunk.launches, raster.launches, prepare_weights.calls
+        before = {k: c() for k, c in counters.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, _ = model.loss(batches[i % len(batches)], train=True, generator=gen)
@@ -1684,9 +1854,8 @@ def box_train_run(model, init, batches, label: str, smi: str, plain: bool) -> di
         dt = time.perf_counter() - t0
         out["loss"].append(loss.item())
         out["step_ms"].append(1e3 * dt)
-        out["trunk_launches"].append(trunk.launches - launches)
-        out["raster_launches"].append(raster.launches - rasters)
-        out["weight_builds"].append(prepare_weights.calls - builds)
+        for k, c in counters.items():
+            out[k].append(c() - before[k])
         return dt
 
     torch.cuda.synchronize()
@@ -1696,26 +1865,31 @@ def box_train_run(model, init, batches, label: str, smi: str, plain: bool) -> di
         reset_launches()
         prepare_weights.calls = 0
         start = encoder()
-        for stage, first, last in (("frozen", 0, BOX_FROZEN), ("unfrozen", BOX_FROZEN, steps)):
+        for stage, first, last in (("frozen", 0, frozen), ("unfrozen", frozen, steps)):
             step(first)  # the stage's warm-up
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
                 window = sum(step(i) for i in range(first + 1, last))
             out[f"window_{stage}"] = window_report(prof, window, f"{name}, {stage}", smi, n=last - first - 1,
                                                    unit="step")
             if not plain:
-                out[f"top_aten_{stage}"] = top_aten_ops(prof, last - first - 1, f"{name}, {stage}")
+                out[f"top_aten_{stage}"] = top_aten_ops(prof, last - first - 1, f"{name}, {stage}", k=top_k)
             del prof
-        rasters = 0 if plain or isinstance(model, Boxes) else steps
-        out["launches"] = expect_launches(f"{label} training", 0 if plain else steps, rasters)
+        out["launches"] = {"trunk": trunk.launches, "raster": raster.launches, "roialign": roialign.launches,
+                           "roialign_backward": roialign_backward.launches}
+    if plain:
+        expect(f"{name} kernel launches", out["launches"], dict.fromkeys(out["launches"], 0))
     out["encoder_start"], out["encoder_end"] = start, encoder()
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if not all(np.isfinite(out["loss"])):
         raise RuntimeError(f"{label}: non-finite loss {out['loss']}")
-    print(f"{name}: losses {out['loss']}, ms/step {out['step_ms']} "
-          f"({BOX_FROZEN} frozen, {BOX_UNFROZEN} unfrozen), B1 launches {out['trunk_launches']}, "
-          f"B2 launches {out['raster_launches']}, kernel-weight builds {out['weight_builds']}, "
-          f"peak memory {out['peak_memory_gb']:.2f} GB", flush=True)
+    print(f"{name}: losses {out['loss']}, ms/step {out['step_ms']} ({frozen} frozen, {unfrozen} unfrozen), "
+          + ", ".join(f"{k} {out[k]}" for k in counters)
+          + f", peak memory {out['peak_memory_gb']:.2f} GB", flush=True)
     return out
+
+
+BOX_COUNTERS = {"trunk_launches": lambda: trunk.launches, "raster_launches": lambda: raster.launches,
+                "weight_builds": lambda: prepare_weights.calls}
 
 
 def box_training_phase(ae_ckpt: Path, smi: str) -> dict:
@@ -1742,7 +1916,8 @@ def box_training_phase(ae_ckpt: Path, smi: str) -> dict:
                 print(f"{label}: batch {i} targets {n} differing pixels from plain", flush=True)
                 if n:
                     raise RuntimeError(f"{label}: B2 targets differ from plain in {n} pixels")
-        run = box_train_run(model, init, batches, label, smi, plain=False)
+        run = staged_train_run(model, init, batches, label, smi, False, BOX_FROZEN, BOX_UNFROZEN,
+                               BOX_UNFREEZE, BOX_COUNTERS)
         rasters = 0 if isinstance(model, Boxes) else 1
         expect(f"{label} B1 launches per step", run["trunk_launches"], [1] * (BOX_FROZEN + BOX_UNFROZEN))
         expect(f"{label} B2 launches per step", run["raster_launches"], [rasters] * (BOX_FROZEN + BOX_UNFROZEN))
@@ -1756,7 +1931,8 @@ def box_training_phase(ae_ckpt: Path, smi: str) -> dict:
         trunk_moved = [n for n in ("encoder.c1.weight", "encoder.c3.weight")
                        if not torch.equal(run["encoder_frozen"][n], run["encoder_end"][n])]
         expect(f"{label} trunk weights moved once unfrozen", trunk_moved, ["encoder.c1.weight", "encoder.c3.weight"])
-        plain = box_train_run(model, init, batches, label, smi, plain=True)
+        plain = staged_train_run(model, init, batches, label, smi, True, BOX_FROZEN, BOX_UNFROZEN,
+                               BOX_UNFREEZE, BOX_COUNTERS)
         run["loss_rel_err"] = hold_trajectory(label, run["loss"], plain["loss"])
         for r in (run, plain):
             for k in ("encoder_start", "encoder_frozen", "encoder_end"):
@@ -1767,6 +1943,187 @@ def box_training_phase(ae_ckpt: Path, smi: str) -> dict:
             f"{plain[f'window_{stage}']['wall_ms']:.3f}), idle share {run[f'window_{stage}']['idle_share']:.3f}"
             for stage in ("frozen", "unfrozen")) + f"; peak {run['peak_memory_gb']:.2f} GB; encoder "
               "bit-identical through the frozen steps", flush=True)
+        out[cls.name], out[f"{cls.name}_plain"] = run, plain
+        del model, init
+        torch.cuda.empty_cache()
+    return out
+
+
+def det_first_step(model, init, batch, label: str) -> dict:
+    """The first training step by parts, the kernels against the plain
+    kernels from the weights `init` with one draw of noise: the RPN losses,
+    the RoI losses on the plain run's sampled rois (DET_STEP0_TOL each),
+    and the count of post-NMS proposal slots that differ."""
+    model.load_state_dict(init)
+    model.train()
+    gt = model._targets(batch)
+    noise = model.head.draw_noise(BATCH, gt[0].shape[1], torch.Generator(device="cuda").manual_seed(SEED + 11),
+                                  "cuda")
+    road = batch["road"] if model.uses_roadmap else None
+    head = model.head
+    runs = {}
+    with torch.no_grad():
+        for name, ctx in (("kernel", nullcontext), ("plain", plain_kernels)):
+            with ctx():
+                feats = model.backbone_features(batch["images"], road)
+                obj, dl = head.rpn_forward(feats)
+                rpn = head.rpn_loss(obj, dl, gt[0], gt[1], noise["rpn"])
+                rois, rv, _ = head.proposals(obj, dl)
+                runs[name] = (feats, rpn, rois, rv, head.sample_proposals(rois, rv, *gt, noise["roi"]))
+        sampled = runs["plain"][4]
+        roi = {"kernel": head.roi_loss(runs["kernel"][0], sampled)}
+        with plain_kernels():
+            roi["plain"] = head.roi_loss(runs["plain"][0], sampled)
+    rec = {}
+    for i, key in enumerate(("loss_objectness", "loss_rpn_box_reg")):
+        got, ref = runs["kernel"][1][i].item(), runs["plain"][1][i].item()
+        rec[key] = (got, ref)
+    for i, key in enumerate(("loss_classifier", "loss_box_reg")):
+        rec[key] = (roi["kernel"][i].item(), roi["plain"][i].item())
+    for key, (got, ref) in rec.items():
+        err = abs(got - ref) / max(abs(ref), 1e-30)
+        if not err <= DET_STEP0_TOL:
+            raise RuntimeError(f"{label} first step: {key} {got} against plain {ref} (relative {err})")
+    differ = ((runs["kernel"][2] != runs["plain"][2]).any(-1) | (runs["kernel"][3] != runs["plain"][3]))
+    n_differ = int(differ.sum())
+    print(f"{label} first step, kernels against plain kernels: " + ", ".join(
+        f"{k} {g:.7g} / {r:.7g}" for k, (g, r) in rec.items()) + f" (RoI losses on the plain run's sampled "
+          f"rois; each within {DET_STEP0_TOL}); {n_differ} of {differ.numel()} post-NMS proposal slots differ",
+          flush=True)
+    return {"losses": rec, "differing_proposals": n_differ}
+
+
+DET_COUNTERS = {"trunk_launches": lambda: trunk.launches, "roialign_launches": lambda: roialign.launches,
+                "roialign_backward_launches": lambda: roialign_backward.launches,
+                "weight_builds": lambda: prepare_weights.calls, "nms_checks": lambda: det.nms_fixed.checks}
+
+
+def device_ms_per_call(fn, calls: int = 10) -> float:
+    """Device time per call of fn(): every kernel and copy it runs, from
+    torch.profiler over `calls` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    if not us:
+        raise RuntimeError("the profiler traced no device time")
+    return us / 1e3 / calls
+
+
+def det_stage_ms(model, batch, smi: str) -> dict:
+    """Each stage of a detection training step alone, everything trainable,
+    f32, batch 8: its device time (torch.profiler) and its time on the
+    stream (CUDA events over back-to-back calls; the stages with host
+    readbacks, NMS, include them)."""
+    model.apply_freeze_mask(DET_UNFREEZE)
+    model.train()
+    head, enc = model.head, model.encoder
+    gt = model._targets(batch)
+    road = batch["road"] if model.uses_roadmap else None
+    noise = head.draw_noise(BATCH, gt[0].shape[1], torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    params = [enc.c1.weight, enc.c1.bias, enc.c2.weight, enc.c2.bias, enc.c3.weight, enc.c3.bias]
+    with torch.no_grad():
+        x = model._backbone_input(batch["images"], road)
+        feats = model.backbone_features(batch["images"], road)
+        obj, dl = head.rpn_forward(feats)
+        cells = det.base_anchors(head.cfg.anchor_sizes, head.cfg.anchor_ratios)
+        fs, st = head.cfg.feat_size, head.cfg.feat_stride
+        labels, _ = det.match_labels_grid(cells, fs, fs, st, gt[0], gt[1])
+        rois, rv, _ = head.proposals(obj, dl)
+        sampled = head.sample_proposals(rois, rv, *gt, noise["roi"])
+        pooled = det.batched_roi_align(feats, sampled["rois"], output_size=7, spatial_scale=0.5)
+    xg = x.detach().requires_grad_()
+    g3 = torch.randn_like(feats)
+    gp = torch.randn_like(pooled)
+    flat = pooled.permute(0, 1, 4, 2, 3).reshape(BATCH, ROI_SAMPLED, -1).detach()
+
+    def box_mlp():
+        cls, reg = head.box_predictions(torch.relu(head.box_fc2(torch.relu(head.box_fc1(flat)))))
+        (cls.sum() + reg.sum()).backward()
+
+    stages = {
+        "B1 forward [8, 800, 800, 3]": lambda: trunk(x.detach(), *[p.detach() for p in params]),
+        "B1 forward + TrunkFunction backward (plain recompute, cuDNN dgrad and wgrad)":
+            lambda: trunk(xg, *params).backward(g3),
+        "RPN convs forward + backward": lambda: sum(t.sum() for t in head.rpn_forward(feats.detach())).backward(),
+        "match_labels_grid (2.4M anchors x 100 GT an image)":
+            lambda: det.match_labels_grid(cells, fs, fs, st, gt[0], gt[1]),
+        "sample_balanced, RPN (exact top-k over 2.4M an image)":
+            lambda: det.sample_balanced(noise["rpn"], labels, 256, 0.5),
+        "proposals: top-2000, decode, NMS (host readbacks)": lambda: head.proposals(obj, dl),
+        "sample_proposals (1100 candidates an image)":
+            lambda: head.sample_proposals(rois, rv, *gt, noise["roi"]),
+        "B3 forward, 512 rois an image": lambda: det.batched_roi_align(feats, sampled["rois"], output_size=7,
+                                                                        spatial_scale=0.5),
+        "B3-bwd, 512 rois an image": lambda: roialign_backward(gp, sampled["rois"], tuple(feats.shape),
+                                                                feats.dtype, **ROI_KW),
+        "box MLP forward + backward (4096 rows)": box_mlp,
+    }
+    out = {}
+    for name, fn in stages.items():
+        out[name] = {"device_ms": device_ms_per_call(fn), "stream_ms": cuda_ms(fn, budget_ms=200.0)}
+        print(f"{model.name} training stage ({smi}): device {out[name]['device_ms']:9.3f} ms, on the stream "
+              f"{out[name]['stream_ms']:9.3f} ms  {name}", flush=True)
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def det_training_phase(ae_ckpt: Path, smi: str) -> dict:
+    """faster_rcnn_rm and faster_rcnn over the BasicAE checkpoint `ae_ckpt`
+    at the JAX package's DetectionConfig defaults: the first step by parts
+    against the plain kernels, then DET_FROZEN frozen and DET_UNFROZEN
+    unfrozen Adam steps through the kernels and again with the plain
+    kernels. Checks the launches a step (B1 and B3 once; B3-bwd once for
+    faster_rcnn_rm, and for faster_rcnn once the encoder trains), one
+    kernel-weight layout while frozen and one after each update once the
+    encoder trains, the encoder bit-identical while frozen, the losses;
+    then times each stage of a faster_rcnn_rm step."""
+    tf32_line("detection training")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    batches = detection_batches()
+    out = {}
+    for cls in DET_TRAIN_TASKS:
+        label = f"{cls.name} training"
+        model = cls(dict(DET_HPARAMS, pretrained_path=str(ae_ckpt)), device="cuda", generator=gen)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        first = det_first_step(model, init, batches[0], label)
+        run = staged_train_run(model, init, batches, label, smi, False, DET_FROZEN, DET_UNFROZEN,
+                               DET_UNFREEZE, DET_COUNTERS, top_k=12)
+        steps = DET_FROZEN + DET_UNFROZEN
+        bwd = [1] * steps if model.uses_roadmap else [0] * DET_FROZEN + [1] * DET_UNFROZEN
+        expect(f"{label} B1 launches per step", run["trunk_launches"], [1] * steps)
+        expect(f"{label} B3 launches per step", run["roialign_launches"], [1] * steps)
+        expect(f"{label} B3-bwd launches per step", run["roialign_backward_launches"], bwd)
+        expect(f"{label} kernel-weight builds per step", run["weight_builds"],
+               [1] + [0] * DET_FROZEN + [1] * (DET_UNFROZEN - 1))
+        moved = [n for n, v in run["encoder_start"].items() if not torch.equal(v, run["encoder_frozen"][n])]
+        expect(f"{label} encoder parameters changed while frozen", moved, [])
+        trunk_moved = [n for n in ("encoder.c1.weight", "encoder.c3.weight")
+                       if not torch.equal(run["encoder_frozen"][n], run["encoder_end"][n])]
+        expect(f"{label} trunk weights moved once unfrozen", trunk_moved, ["encoder.c1.weight", "encoder.c3.weight"])
+        plain = staged_train_run(model, init, batches, label, smi, True, DET_FROZEN, DET_UNFROZEN,
+                               DET_UNFREEZE, DET_COUNTERS, top_k=12)
+        errs = [abs(a - b) / abs(b) for a, b in zip(run["loss"], plain["loss"])]
+        if not all(e <= LOSS_TOL[1] for e in errs[1:]):
+            raise RuntimeError(f"{label}: losses {run['loss']} against plain {plain['loss']} (relative {errs})")
+        print(f"{label}: losses against the plain kernels' relative {errs} (steps 1.. within {LOSS_TOL[1]})",
+              flush=True)
+        run["loss_rel_err"], run["first_step"] = errs, first
+        for r in (run, plain):
+            for k in ("encoder_start", "encoder_frozen", "encoder_end"):
+                del r[k]
+        print(f"{label} ({smi}): " + "; ".join(
+            f"{stage} {run[f'window_{stage}']['scenes_per_s']:.1f} scenes/s, "
+            f"{run[f'window_{stage}']['wall_ms']:.3f} ms a step (plain kernels "
+            f"{plain[f'window_{stage}']['wall_ms']:.3f}), idle share {run[f'window_{stage}']['idle_share']:.3f}"
+            for stage in ("frozen", "unfrozen")) + f"; first step {run['step_ms'][0]:.1f} ms (cuDNN autotuning); "
+              f"peak {run['peak_memory_gb']:.2f} GB; encoder bit-identical through the frozen steps", flush=True)
+        if model.uses_roadmap:
+            run["stage_ms"] = det_stage_ms(model, batches[0], smi)
         out[cls.name], out[f"{cls.name}_plain"] = run, plain
         del model, init
         torch.cuda.empty_cache()
@@ -1817,6 +2174,7 @@ def cli_run(label: str, main, argv: list, smi: str, ranges: tuple = ()) -> tuple
     rec = {"seconds": time.perf_counter() - t0, "trunk_launches": trunk.launches,
            "trunk_int8_launches": trunk_int8.launches,
            "raster_launches": raster.launches, "roialign_launches": roialign.launches,
+           "roialign_backward_launches": roialign_backward.launches,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi,
            "ranges": {name: range_idle(prof, name) for name in ranges}}
     print(f"{label} ({smi}): {rec['seconds']:.1f} s, B1 launches {rec['trunk_launches']}, B1-int8 launches "
@@ -1979,6 +2337,85 @@ def staged_cli(label: str, main, argv: list, cls, smi: str, rasters: int, images
     return fit, rec
 
 
+@contextmanager
+def det_launches_per_call(cls):
+    """Each training step (Trainer._train_step: the loss, its backward and
+    Adam), validation loss (val_metrics) and host validation
+    (host_val_metrics: predict and the diagnostics pass) appends (kind, B1,
+    B3, B3-bwd launches) to the yielded list."""
+    calls, depth = [], [0]
+
+    def counts():
+        return trunk.launches, roialign.launches, roialign_backward.launches
+
+    def wrap(kind, fn):
+        def counted(*args, **kwargs):
+            before = counts()
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    calls.append((kind, *(a - b for a, b in zip(counts(), before))))
+        return counted
+
+    with mock.patch.object(trainer_module.Trainer, "_train_step",
+                           wrap("step", trainer_module.Trainer._train_step)), \
+            mock.patch.object(cls, "val_metrics", wrap("val_metrics", cls.val_metrics)), \
+            mock.patch.object(cls, "host_val_metrics", wrap("host_val_metrics", cls.host_val_metrics)):
+        yield calls
+
+
+DET_CALL_LAUNCHES = {"step": (1, 1, 1), "val_metrics": (1, 1, 0), "host_val_metrics": (2, 2, 0)}
+
+
+def det_staged_cli(label: str, argv: list, smi: str) -> tuple:
+    """cli.faster_rcnn --variant rm for CLI_EPOCHS epochs of CLI_BATCHES
+    steps, the encoder frozen in epoch 0 (--unfreeze_epoch_no 1), each
+    epoch's training loop under torch.profiler. Checks (B1, B3, B3-bwd)
+    launches of (1, 1, 1) in each training step and (3, 3, 0) in each
+    validation batch (its loss (1, 1, 0), predict and the diagnostics (2,
+    2, 0)), one kernel-weight layout in all of the frozen epoch and one after
+    each Adam update of the trained one, and the encoder bit-identical
+    through epoch 0 and moved in epoch 1. -> (fit, its measures)."""
+    cls = FasterRCNNRoadMap
+    marks = []
+    apply_freeze_mask = cls.apply_freeze_mask
+
+    def spy(task, epoch):
+        marks.append((prepare_weights.calls,
+                      {n: p.detach().clone() for n, p in task.named_parameters() if n.startswith("encoder.")}))
+        return apply_freeze_mask(task, epoch)
+
+    prepare_weights.calls = 0
+    with mock.patch.object(cls, "apply_freeze_mask", spy), det_launches_per_call(cls) as calls:
+        fit, rec = cli_run(label, cli_faster_rcnn.main, argv, smi,
+                           ranges=tuple(f"epoch {e} train" for e in range(CLI_EPOCHS)))
+    steps = CLI_EPOCHS * CLI_BATCHES
+    expect(f"{label} training steps, validation losses, host validations",
+           [sum(c[0] == k for c in calls) for k in DET_CALL_LAUNCHES], [steps, CLI_EPOCHS, CLI_EPOCHS])
+    expect(f"{label} (B1, B3, B3-bwd) launches per call",
+           {k: sorted({tuple(c[1:]) for c in calls if c[0] == k}) for k in DET_CALL_LAUNCHES},
+           {k: [v] for k, v in DET_CALL_LAUNCHES.items()})
+    expect(f"{label} B1, B3, B3-bwd launches",
+           (rec["trunk_launches"], rec["roialign_launches"], rec["roialign_backward_launches"]),
+           (steps + 3 * CLI_EPOCHS, steps + 3 * CLI_EPOCHS, steps))
+    builds = [marks[1][0] - marks[0][0], prepare_weights.calls - marks[1][0]]
+    expect(f"{label} kernel-weight builds by epoch", builds, [1, CLI_BATCHES])
+    moved = [n for n, v in marks[0][1].items() if not torch.equal(v, marks[1][1][n])]
+    expect(f"{label} encoder parameters changed in the frozen epoch", moved, [])
+    trained = dict(fit.task.named_parameters())
+    if all(torch.equal(v, trained[n]) for n, v in marks[1][1].items()):
+        raise RuntimeError(f"{label}: the encoder did not move after the unfreeze")
+    print(f"{label}: B1, B3, B3-bwd launches {rec['trunk_launches']}, {rec['roialign_launches']}, "
+          f"{rec['roialign_backward_launches']} ({steps} steps of (1, 1, 1), {CLI_EPOCHS} validation batches of "
+          f"(3, 3, 0)); encoder parameters bit-identical through epoch 0, moved in epoch 1; kernel-weight builds "
+          f"by epoch {builds}", flush=True)
+    rec["weight_builds_by_epoch"] = builds
+    return fit, rec
+
+
 def hold_resume(label: str, root: Path, task: str, ref: dict, stop: int, smi: str) -> dict:
     """The losses of a run stopped at `stop` steps and resumed (all versions
     under root) against the uninterrupted run's `ref`: equal within
@@ -2008,6 +2445,101 @@ class Tee(io.StringIO):
 def expect(label: str, got, want) -> None:
     if got != want:
         raise RuntimeError(f"{label}: {got}, expected {want}")
+
+
+def det_cli_runs(tmp: Path, box_argv: list, smi: str) -> dict:
+    """cli.faster_rcnn over the basic_ae encoder of the trainer phase, with
+    its flags `box_argv` (the synthetic dataset, batch 8, precision 32,
+    CLI_EPOCHS epochs of CLI_BATCHES steps, --unfreeze_epoch_no 1):
+    --variant rm frozen in epoch 0 and trained in epoch 1; the same run
+    under deterministic algorithms, uninterrupted and stopped by --max_steps
+    and resumed (losses within RESUME_TOL); rm at precision 16 (B1, B3 and
+    B3-bwd in bf16) and --variant plain (frozen: no B3-bwd) for 2 steps
+    each."""
+    steps = CLI_EPOCHS * CLI_BATCHES
+    out = {}
+    dtypes = []
+    launch = trunk_module._launch
+
+    def spy_launch(x, params, stages):
+        dtypes.append(x.dtype)
+        return launch(x, params, stages)
+
+    det_argv = box_argv + ["--variant", "rm"]
+    root_det = tmp / "cli_det"
+    fit, rec = det_staged_cli("cli.faster_rcnn --variant rm", det_argv + ["--default_root_dir", str(root_det)], smi)
+    out["faster_rcnn_rm"] = fit_measures("cli.faster_rcnn --variant rm", root_det, "faster_rcnn_rm", rec)
+    del fit
+    shutil.rmtree(root_det)
+    torch.cuda.empty_cache()
+
+    root_dr = tmp / "cli_det_resume"
+    with deterministic_algorithms():
+        fit, ref = cli_run("cli.faster_rcnn, deterministic", cli_faster_rcnn.main,
+                           det_argv + ["--default_root_dir", str(tmp / "cli_det_det")], smi)
+        expect("cli.faster_rcnn, deterministic B1, B3, B3-bwd launches",
+               (ref["trunk_launches"], ref["roialign_launches"], ref["roialign_backward_launches"]),
+               (steps + 3 * CLI_EPOCHS, steps + 3 * CLI_EPOCHS, steps))
+        ref = fit_measures("cli.faster_rcnn, deterministic", tmp / "cli_det_det", "faster_rcnn_rm", ref)
+        del fit
+        torch.cuda.empty_cache()
+        fit, stop = cli_run("cli.faster_rcnn --max_steps", cli_faster_rcnn.main,
+                            det_argv + ["--default_root_dir", str(root_dr), "--max_steps", str(CLI_AE_STOP)], smi)
+        expect("cli.faster_rcnn --max_steps stop", fit.stop_reason, f"max_steps={CLI_AE_STOP} reached")
+        expect("cli.faster_rcnn --max_steps B1, B3, B3-bwd launches (5 steps, 1 validation batch)",
+               (stop["trunk_launches"], stop["roialign_launches"], stop["roialign_backward_launches"]),
+               (CLI_AE_STOP + 3, CLI_AE_STOP + 3, CLI_AE_STOP))
+        last = fit.last_ckpt_path
+        del fit
+        torch.cuda.empty_cache()
+        fit, resumed = cli_run("cli.faster_rcnn resumed", cli_faster_rcnn.main,
+                               det_argv + ["--default_root_dir", str(root_dr), "--resume_from_checkpoint", last],
+                               smi)
+    expect("cli.faster_rcnn resumed B1, B3, B3-bwd launches",
+           (resumed["trunk_launches"], resumed["roialign_launches"], resumed["roialign_backward_launches"]),
+           (steps - CLI_AE_STOP + 3, steps - CLI_AE_STOP + 3, steps - CLI_AE_STOP))
+    del fit
+    torch.cuda.empty_cache()
+    out["faster_rcnn_rm_resume"] = {**hold_resume("cli.faster_rcnn", root_dr, "faster_rcnn_rm", ref["losses"],
+                                                  CLI_AE_STOP, smi),
+                                    "uninterrupted": ref, "stopped": stop, "resumed": resumed}
+    shutil.rmtree(root_dr)
+    shutil.rmtree(tmp / "cli_det_det")
+
+    roi_dtypes = []
+    roi_call = roialign_module._call
+
+    def spy_roi_call(name, dtype, *args):
+        roi_dtypes.append((name, dtype))
+        return roi_call(name, dtype, *args)
+
+    root_d16 = tmp / "cli_det16"
+    argv = det_argv[:det_argv.index("--precision")] + ["--precision", "16"] + det_argv[det_argv.index("--precision") + 2:]
+    with mock.patch.object(trunk_module, "_launch", spy_launch), \
+            mock.patch.object(roialign_module, "_call", spy_roi_call):
+        fit, rec = cli_run("cli.faster_rcnn --precision 16", cli_faster_rcnn.main,
+                           argv + ["--default_root_dir", str(root_d16), "--max_steps", "2"], smi)
+    expect("cli.faster_rcnn --precision 16 B1, B3, B3-bwd launches",
+           (rec["trunk_launches"], rec["roialign_launches"], rec["roialign_backward_launches"]), (2, 2, 2))
+    expect("cli.faster_rcnn --precision 16 trunk dtypes", dtypes, [torch.bfloat16] * 2)
+    expect("cli.faster_rcnn --precision 16 RoIAlign kernels and feature dtypes", roi_dtypes,
+           [("dd_roialign_forward", torch.bfloat16), ("dd_roialign_backward", torch.bfloat16)] * 2)
+    out["faster_rcnn_rm_16"] = fit_measures("cli.faster_rcnn --precision 16", root_d16, "faster_rcnn_rm", rec)
+    del fit
+    shutil.rmtree(root_d16)
+    torch.cuda.empty_cache()
+
+    root_dp = tmp / "cli_det_plain"
+    fit, rec = cli_run("cli.faster_rcnn --variant plain", cli_faster_rcnn.main,
+                       box_argv + ["--variant", "plain", "--default_root_dir", str(root_dp), "--max_steps", "2"], smi)
+    expect("cli.faster_rcnn --variant plain B1, B3, B3-bwd launches (2 frozen steps)",
+           (rec["trunk_launches"], rec["roialign_launches"], rec["roialign_backward_launches"]), (2, 2, 0))
+    out["faster_rcnn"] = fit_measures("cli.faster_rcnn --variant plain", root_dp, "faster_rcnn", rec)
+    del fit
+    shutil.rmtree(root_dp)
+    torch.cuda.empty_cache()
+
+    return out
 
 
 def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
@@ -2217,6 +2749,9 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
     shutil.rmtree(root_mt16)
     torch.cuda.empty_cache()
 
+    # 6b. cli.faster_rcnn over the same encoder
+    out.update(det_cli_runs(tmp, box_argv, smi))
+
     # 7. device_prefetch's staging thread against pinning on the step's thread
     out["prefetch_ab"] = prefetch_ab(tmp, data, ae_ckpt, smi)
     shutil.rmtree(root_a)  # the roadmap and box runs' pretrained_path, read until here
@@ -2246,9 +2781,9 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    build.load_libraries(("trunk", "trunk_int8", "raster", "roialign"))
-    print(f"built trunk.cu, trunk_int8.cu, raster.cu and roialign.cu in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    build.load_libraries(("trunk", "trunk_int8", "raster", "roialign", "roialign_bwd"))
+    print(f"built trunk.cu, trunk_int8.cu, raster.cu, roialign.cu and roialign_bwd.cu in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.BUILD_LOG.items():
         print(f"ptxas [{name}]:\n{log.strip()}", flush=True)
 
@@ -2260,6 +2795,7 @@ def main() -> int:
     tf32_line("kernel phases")
     raster_rec = raster_phase()
     roialign_recs = roialign_phase(gen)
+    roialign_bwd_recs = roialign_backward_phase(gen)
 
     build.BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD) as tmp:
@@ -2274,6 +2810,7 @@ def main() -> int:
         precision8 = precision8_phase(Path(tmp), smi, p16)
         training = training_phase(Path(tmp), smi)
         box_training = box_training_phase(training["ae_ckpt"], smi)
+        det_training = det_training_phase(training["ae_ckpt"], smi)
         trainer = trainer_phase(Path(tmp), smi, training)
 
     box_names = [cls.name for cls in BOX_TRAIN_TASKS]
@@ -2288,9 +2825,21 @@ def main() -> int:
     raster_rec["training_launches"] = {k: box_training[k]["launches"]["raster"] for k in box_names}
     raster_rec["cli_launches"] = {k: trainer[k]["raster_launches"] for k in box_clis}
     records.append(raster_rec)
+    det_names = [cls.name for cls in DET_TRAIN_TASKS]
+    det_clis = ("faster_rcnn_rm", "faster_rcnn")
     for r in roialign_recs:
         precision = 32 if r["dtype"] == "float32" else 16
         r["launches"] = detection[f"faster_rcnn_rm_{precision}"]["predict_launches"]["roialign"]
+        r["training_launches"] = {k: sum(det_training[k]["roialign_launches"]) for k in det_names}
+        r["cli_launches"] = {k: trainer[k]["roialign_launches"]
+                             for k in (det_clis if precision == 32 else ("faster_rcnn_rm_16",))}
+    for r in roialign_bwd_recs:  # the detection-training path: phase 8c's faster_rcnn_rm steps
+        precision = 32 if r["dtype"] == "float32" else 16
+        r["launches"] = sum(det_training["faster_rcnn_rm"]["roialign_backward_launches"])
+        r["launches_on"] = "faster_rcnn_rm training, 3 frozen and 2 unfrozen steps"
+        r["training_launches"] = {k: det_training[k]["roialign_backward_launches"] for k in det_names}
+        r["cli_launches"] = {k: trainer[k]["roialign_backward_launches"]
+                             for k in (det_clis if precision == 32 else ("faster_rcnn_rm_16",))}
     for r in int8_recs:
         served8 = precision8["faster_rcnn_rm" if r["path"] == "detection" else "roadmap"]
         r["launches"] = served8["launches"]["trunk_int8"]
@@ -2298,7 +2847,7 @@ def main() -> int:
         if r["path"] == "roadmap":
             r["cli_launches"] = {"run_test_8": trainer["run_test_8"]["trunk_int8_launches"],
                                  "roadmap_bce_8": trainer["roadmap_bce_8"]["trunk_int8_launches"]}
-    records += int8_recs + int8_variant_recs + roialign_recs + variant_recs
+    records += int8_recs + int8_variant_recs + roialign_recs + roialign_bwd_recs + variant_recs
     f32_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "float32")
     f32_path["cli_launches"] = {k: trainer[k]["trunk_launches"]
                                 for k in ("basic_ae", "roadmap_bce", "run_test", *box_clis)}
@@ -2306,9 +2855,16 @@ def main() -> int:
     bf16_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "bfloat16")
     bf16_path["cli_launches"] = {k: trainer[k]["trunk_launches"]
                                  for k in ("roadmap_bce_16", "roadmap_bce_8", "multitask_16")}
+    f32_det = next(r for r in records if r.get("path") == "detection" and r["name"] == "trunk"
+                   and r["dtype"] == "float32")
+    f32_det["training_launches"] = {k: sum(det_training[k]["trunk_launches"]) for k in det_names}
+    f32_det["cli_launches"] = {k: trainer[k]["trunk_launches"] for k in det_clis}
+    bf16_det = next(r for r in records if r.get("path") == "detection" and r["name"] == "trunk"
+                    and r["dtype"] == "bfloat16")
+    bf16_det["cli_launches"] = {"faster_rcnn_rm_16": trainer["faster_rcnn_rm_16"]["trunk_launches"]}
     print(json.dumps({"serving": served, "box_family": boxes, "detection": detection,
                       "precision8": precision8, "training": training, "box_training": box_training,
-                      "trainer": trainer}, default=str))
+                      "det_training": det_training, "trainer": trainer}, default=str))
     print(smi)
     print(json.dumps({"kernels": records}))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)

@@ -16,7 +16,8 @@
 // floor(y) and min(floor(y) + 1, H - 1) with weights 1 - frac and frac.
 // Every step of the coordinate arithmetic is written with __fmul_rn /
 // __fadd_rn / __fdiv_rn, so nvcc contracts nothing into an fma and the taps
-// and weights are the plain version's to the bit.
+// and weights are the plain version's to the bit; that code lives in
+// roialign_common.cuh, which the backward (roialign_bwd.cu) shares.
 //
 // What bounds it on the H100: bytes. At the detection path's shape
 // ([8, 400, 400, 32] features, 1000 rois an image, out 7, s 2) the output is
@@ -57,11 +58,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "roialign_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 224;          // 7 warps
 constexpr int ROIS = 2;               // rois a block
-constexpr int MAX_SAMPLES = 256;      // out * s, per axis
+using dd_roialign::MAX_SAMPLES;       // out * s, per axis
 
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
@@ -87,22 +90,6 @@ __device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
   }
 }
 
-// Sample n of one axis of a roi (lo, hi already scaled): tap indices and the
-// fraction of the upper tap.
-__device__ __forceinline__ void sample(float lo, float hi, int n, int out, int s, int size,
-                                       int aligned, int* t0, int* t1, float* frac) {
-  const int i = n / s, k = n - i * s;
-  const float bin = __fdiv_rn(__fsub_rn(hi, lo), (float)out);
-  const float off = __fdiv_rn(__fadd_rn((float)k, 0.5f), (float)s);
-  float v = __fadd_rn(lo, __fmul_rn(__fadd_rn((float)i, off), bin));
-  if (aligned) v = __fsub_rn(v, 0.5f);
-  v = fminf(fmaxf(v, 0.f), (float)(size - 1));
-  const int c0 = (int)floorf(v);
-  *t0 = c0;
-  *t1 = min(c0 + 1, size - 1);
-  *frac = __fsub_rn(v, (float)c0);
-}
-
 template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
 roialign_kernel(const T* __restrict__ feats, const float* __restrict__ rois,
@@ -123,11 +110,11 @@ roialign_kernel(const T* __restrict__ feats, const float* __restrict__ rois,
     const int rl = m / P;
     const float* rp = rp0 + 4 * rl;
     if (rows) {
-      sample(__fmul_rn(rp[1], spatial_scale), __fmul_rn(rp[3], spatial_scale), m - rl * P, out_size,
-             s, H, aligned, &s_y0[m], &s_y1[m], &s_fy[m]);
+      dd_roialign::roi_sample(rp, true, m - rl * P, out_size, s, H, spatial_scale, aligned, &s_y0[m],
+                              &s_y1[m], &s_fy[m]);
     } else {
-      sample(__fmul_rn(rp[0], spatial_scale), __fmul_rn(rp[2], spatial_scale), m - rl * P, out_size,
-             s, W, aligned, &s_x0[m], &s_x1[m], &s_fx[m]);
+      dd_roialign::roi_sample(rp, false, m - rl * P, out_size, s, W, spatial_scale, aligned, &s_x0[m],
+                              &s_x1[m], &s_fx[m]);
     }
   }
   __syncthreads();

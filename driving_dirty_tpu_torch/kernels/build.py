@@ -7,7 +7,7 @@ interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 The library lands in `build/` at the root of the checkout, named by a hash of
-the sources and flags, so an edited source builds anew and an unchanged one
+the source, the headers of csrc/ and the flags, so an edited source builds anew and an unchanged one
 loads from disk. `load_libraries` starts one nvcc per source at once. A
 missing nvcc or a failed build raises; nothing falls back.
 """
@@ -41,9 +41,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes()).hexdigest()[:16]
-    return BUILD / f"lib{name}-{digest}.so"
+    """build/lib<name>-<hash>.so, the hash over the flags, the source and
+    every header of csrc/ (a source may include any of them)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + (CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def load_libraries(names) -> dict[str, ctypes.CDLL]:

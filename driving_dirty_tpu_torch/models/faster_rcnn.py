@@ -1,23 +1,32 @@
-"""Faster-RCNN box tasks, inference and validation
-(driving_dirty_tpu/models/faster_rcnn.py).
+"""Faster-RCNN box tasks (driving_dirty_tpu/models/faster_rcnn.py).
 
   BBFasterRCNN      ("faster_rcnn"): six views -> the square layout image
                     (ops/maps.py:layout_images_as_map) -> the SSL encoder's
                     c3 trunk (kernel B1; a c3-only backbone) -> RPN and box
-                    heads (nn/detection.py; RoIAlign is kernel B3), 9
-                    classes.
+                    heads (nn/detection.py; RoIAlign is kernel B3, its
+                    backward B3-bwd), 9 classes.
   FasterRCNNRoadMap ("faster_rcnn_rm"): also fuses the road map as a 4th
                     channel through mapper_cnn Conv(4->3) + sigmoid before
                     the backbone.
 
 Images are [b, 6, H, W, 3] NHWC (uint8 or float), road [b, S, S] with S the
-layout size (800). Box targets: meter corners [.., 2, 4] -> pixel AABBs
-(ops/coords.py:corners_to_aabb); labels the raw category ids plus
-`label_offset`. At precision 8 `predict` calibrates the int8 trunk on its
-first batch, on the trunk's own input (the layout image, fused with the
-road map for faster_rcnn_rm; models/precision.py:Int8TrunkMixin). Training
-(losses, samplers, freezing, the exact-top-k warm-up) comes with detection
-training; `fast_conv` raises.
+layout size (`image_size`, 800). Box targets: meter corners [.., 2, 4] ->
+pixel AABBs (ops/coords.py:corners_to_aabb); labels the raw category ids
+plus `label_offset`. At precision 8 `predict` calibrates the int8 trunk on
+its first batch, on the trunk's own input (the layout image, fused with the
+road map for faster_rcnn_rm; models/precision.py:Int8TrunkMixin).
+
+Training: `loss(batch, train=True, generator=...)` gives the four
+torchvision losses and their sum; the two samplers draw their noise from
+the generator (or take `noise`, nn/detection.py:draw_noise's dict).
+`freeze_mask` freezes the pretrained trunk before `unfreeze_epoch_no`
+(default 10; a 0 also reads as 10, as `hp(...) or 10` does in the JAX
+package); the heads and mapper_cnn train from step 0, so the rm variant's
+trunk input, and with it the features RoIAlign pools, need a gradient at
+every step. Validation is the eval-mode loss (`Task.val_metrics`, its draws
+from the generator) and `host_val_metrics`. `step_variant` keeps the JAX
+package's exact-top-k warm-up key. `add_model_specific_args` gives the CLI's
+flags (cli/faster_rcnn.py). `fast_conv` raises.
 """
 from __future__ import annotations
 
@@ -25,12 +34,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from driving_dirty_tpu_torch.cli.hyperopt import opt_list, tune
 from driving_dirty_tpu_torch.core import layers as L
 from driving_dirty_tpu_torch.core.device import resolve_device
 from driving_dirty_tpu_torch.metrics.threat import ats_bounding_boxes
-from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin
+from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin, add_labeled_data_args
 from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin, compute_dtype
-from driving_dirty_tpu_torch.models.pretrained import init_backbone, load_pretrained_ae
+from driving_dirty_tpu_torch.models.pretrained import encoder_freeze_mask, init_backbone, load_pretrained_ae
 from driving_dirty_tpu_torch.nn.detection import DetectionConfig, FasterRCNNHead
 from driving_dirty_tpu_torch.ops.coords import aabb_to_corners, corners_to_aabb
 from driving_dirty_tpu_torch.ops.maps import layout_images_as_map
@@ -68,7 +78,9 @@ class BBFasterRCNN(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
         if hp(h, "fast_conv", False):
             raise NotImplementedError("fast_conv (the blocked space-to-depth convs) is not ported yet")
         self.batch_size = hp(h, "batch_size", 6)
+        self.unfreeze_epoch_no = hp(h, "unfreeze_epoch_no", 10) or 10
         self.label_offset = hp(h, "label_offset", 0)
+        self.exact_topk_warmup_steps = hp(h, "exact_topk_warmup_steps", 500)
         self.cfg = DetectionConfig(
             image_size=hp(h, "image_size", 800),
             anchor_sizes=_ints(hp(h, "anchor_sizes", (32, 64, 128, 256, 512))),
@@ -119,6 +131,28 @@ class BBFasterRCNN(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
         """-> (gt boxes [b, G, 4] pixel xyxy, their validity, labels)."""
         cats = batch["categories"].to(torch.int32) + self.label_offset
         return corners_to_aabb(batch["boxes"]), batch["box_valid"], cats
+
+    def loss(self, batch, *, train: bool, generator=None, noise=None):
+        """-> (the sum of the four losses, {loss name: value}). Batch:
+        images, boxes, box_valid, categories (and road for faster_rcnn_rm).
+        The samplers' noise is `noise` or drawn from `generator`."""
+        self.train(train)
+        gt_boxes, gt_valid, gt_labels = self._targets(batch)
+        feats = self.backbone_features(batch["images"], batch.get("road") if self.uses_roadmap else None)
+        losses = self.head.forward_train(feats, gt_boxes, gt_valid, gt_labels, generator=generator, noise=noise)
+        return sum(losses.values()), losses
+
+    def step_variant(self, global_step: int):
+        """Trainer hook: the JAX package's key of the step variant at this
+        optimizer step, "exact_topk_warmup" for the first
+        exact_topk_warmup_steps steps unless exact_topk is on, else None.
+        There the warm-up swaps approx_max_k for exact top-k; the port's
+        proposals and samplers are always exact, so here it changes no
+        numerics."""
+        if self.exact_topk_warmup_steps and not self.cfg.exact_topk \
+                and global_step < self.exact_topk_warmup_steps:
+            return "exact_topk_warmup"
+        return None
 
     def _detect(self, images, road):
         dets = self.head.forward_eval(self.backbone_features(images, road))
@@ -231,9 +265,68 @@ class BBFasterRCNN(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
             out["val_cls_acc"] = (float(np.mean(acc)), float(len(acc)))
         return out
 
+    # --- optimization (the learning rate is Task's: hp learning_rate, 1e-3)
+    def freeze_mask(self, epoch: int):
+        """The encoder frozen before unfreeze_epoch_no; the heads and
+        mapper_cnn always train."""
+        return encoder_freeze_mask(self, epoch)
+
+    # --- CLI -------------------------------------------------------------
+    @staticmethod
+    def add_model_specific_args(parser):
+        opt_list(parser, "--learning_rate", type=float, default=1e-3,
+                 options=[1e-3, 1e-4, 1e-5], tunable=True)
+        parser.add_argument("--batch_size", type=int, default=6)
+        parser.add_argument("--unfreeze_epoch_no", type=int, default=10)
+        parser.add_argument("--max_bb", type=int, default=100)
+        parser.add_argument("--anchor_sizes", type=str, default="32,64,128,256,512",
+                            help="comma-separated anchor sizes (px); the default is the reference's "
+                                 "torchvision config")
+        parser.add_argument("--anchor_ratios", type=str, default="0.5,1.0,2.0",
+                            help="comma-separated anchor aspect ratios")
+        parser.add_argument("--rpn_head_dilations", type=str, default="",
+                            help="comma-separated dilations of extra RPN-head 3x3 convs (e.g. '4,8,16,32'); "
+                                 "empty (default) = torchvision's single-conv head")
+        parser.add_argument("--rpn_head_norm", type=int, default=0, choices=[0, 1],
+                            help="per-cell RMS norm in the RPN head (0 = torchvision's head)")
+        parser.add_argument("--rpn_pre_nms_top_n", type=int, default=2000)
+        parser.add_argument("--exact_topk", type=int, default=0, choices=[0, 1],
+                            help="accepted for the JAX package's configurations: the port always "
+                                 "selects proposals and samples with exact top-k")
+        parser.add_argument("--exact_topk_warmup_steps", type=int, default=500,
+                            help="steps of the JAX package's exact-top-k warm-up (step_variant's key; "
+                                 "the port is exact throughout; 0 disables)")
+        parser.add_argument("--nms_fixed_depth", type=int, default=0,
+                            help="N > 0: NMS as N straight suppression steps instead of the "
+                                 "convergence-checked loop (exact for dependency chains < N)")
+        parser.add_argument("--label_offset", type=int, default=0,
+                            help="shift category ids by N for the classifier (1 = torchvision's "
+                                 "background 0, classes 1..9; default 0 = the reference's labels, "
+                                 "category 0 colliding with the background)")
+        parser.add_argument("--rpn_post_nms_top_n", type=int, default=1000)
+        parser.add_argument("--box_batch_per_image", type=int, default=512)
+        parser.add_argument("--mse_loss", action="store_true", default=False)
+        parser.add_argument("--val_ats", type=int, default=1, choices=[0, 1],
+                            help="compute the box threat score (val_ats) during validation")
+        parser.add_argument("--val_diag", type=int, default=1, choices=[0, 1],
+                            help="log the stage diagnostics (val_rpn_recall, val_prop_cov, "
+                                 "val_cls_acc) each validation epoch")
+        parser.add_argument("--val_ats_score_thresh", type=float, default=0.05,
+                            help="score floor of the detections entering val_ats (default: the "
+                                 "eval pipeline's box_score_thresh)")
+        add_labeled_data_args(parser)
+        return parser
+
 
 class FasterRCNNRoadMap(BBFasterRCNN):
     """faster_rcnn_rm: + the road map fused as a 4th input channel."""
 
     name = "faster_rcnn_rm"
     uses_roadmap = True
+
+    @staticmethod
+    def add_model_specific_args(parser):
+        BBFasterRCNN.add_model_specific_args(parser)
+        parser.set_defaults(output_img_freq=100)  # the reference's CLI default for this task
+        tune(parser, "unfreeze_epoch_no", [0, 10])
+        return parser

@@ -1,18 +1,26 @@
-"""Faster-RCNN RPN and box heads, inference half
-(driving_dirty_tpu/nn/detection.py).
+"""Faster-RCNN RPN and box heads (driving_dirty_tpu/nn/detection.py).
 
 Fixed shapes throughout, as in the JAX package: a dense anchor grid scored
 in bulk, the top rpn_pre_nms_top_n by exact top-k (the JAX package's
 default lax.approx_max_k has no PyTorch twin; its `exact_topk=True` is the
 same selection), NMS over fixed candidate sets with validity masks
-(ops/detection.py:nms_fixed), RoIAlign through kernel B3, and a box head
-whose post-processing keeps box_detections_per_img slots per image.
-Images are batched where the JAX package vmaps them.
+(ops/detection.py:nms_fixed), RoIAlign through kernel B3 (and, in
+training, its backward B3-bwd), and a box head whose post-processing keeps
+box_detections_per_img slots per image. Images are batched where the JAX
+package vmaps them.
+
+Training (`forward_train`) has torchvision's losses under their names:
+RPN objectness BCE and smooth-L1 (beta 1/9) over 256 balanced anchor
+samples an image, matched on the whole grid (ops/detection.py:
+match_labels_grid); the box head's class CE and smooth-L1 (beta 1) on the
+matched class's slot over 512 balanced proposal samples, the GT boxes
+appended to the proposals. The two samplers rank by uniform noise drawn
+from the step's generator (or passed in: `noise`). Proposals come from the
+detached RPN outputs, as the JAX package's stop_gradient.
 
 Labels are the raw dataset category ids, as the reference feeds them
 (class 0 collides with the background label; `label_offset` in the task
-shifts them). The training losses and samplers come with detection
-training.
+shifts them).
 """
 from __future__ import annotations
 
@@ -168,6 +176,104 @@ class FasterRCNNHead(nn.Module):
     def box_predictions(self, embeddings):
         """-> (class logits [b, R, K], box deltas [b, R, K * 4])."""
         return self.cls_score(embeddings), self.bbox_pred(embeddings)
+
+    # ------------------------------------------------------------------
+    # Training losses
+    # ------------------------------------------------------------------
+    def draw_noise(self, b: int, n_gt: int, generator, device):
+        """One training step's sampler noise, uniform on [0, 1): "rpn" [b, N]
+        for the anchors, then "roi" [b, rpn_post_nms_top_n + n_gt] for the
+        proposals with the GT boxes appended."""
+        cfg = self.cfg
+        n = cfg.feat_size * cfg.feat_size * cfg.num_anchors_per_cell
+        rpn = torch.rand((b, n), generator=generator, device=device)
+        roi = torch.rand((b, cfg.rpn_post_nms_top_n + n_gt), generator=generator, device=device)
+        return {"rpn": rpn, "roi": roi}
+
+    def rpn_loss(self, objectness, deltas, gt_boxes, gt_valid, noise):
+        """-> (loss_objectness, loss_rpn_box_reg), each the mean over images
+        of its sum over the sampled anchors over their count. gt_boxes
+        [b, G, 4] pixel xyxy, noise [b, N] (the sampler's)."""
+        cfg = self.cfg
+        b = objectness.shape[0]
+        a_n = cfg.num_anchors_per_cell
+        anchors = self.anchors(objectness.device)
+        cells = det.base_anchors(cfg.anchor_sizes, cfg.anchor_ratios)
+        labels, gt_best_iou = det.match_labels_grid(cells, cfg.feat_size, cfg.feat_size, cfg.feat_stride,
+                                                    gt_boxes, gt_valid, cfg.rpn_fg_thresh, cfg.rpn_bg_thresh)
+        idx, is_pos, take = det.sample_balanced(noise, labels, cfg.rpn_batch_per_image,
+                                                cfg.rpn_positive_fraction)
+        # the sampled logits and deltas gathered in the conv's [HW, A(*4)]
+        # tiling: rows by cell, then the anchor type's column(s)
+        cell, atype = idx // a_n, idx % a_n
+        rows = objectness.reshape(b, -1, a_n).gather(1, cell[..., None].expand(-1, -1, a_n))
+        o = rows.gather(2, atype[..., None])[..., 0].float()  # the BCE in f32 at any precision
+        w = take.float()
+        t = is_pos.float()
+        n = w.sum(dim=-1).clamp(min=1.0)
+        obj_loss = (w * (o.clamp(min=0) - o * t + torch.log1p(torch.exp(-o.abs())))).sum(dim=-1) / n
+        sampled = anchors[idx]                                                   # [b, S, 4]
+        match = det.match_subset(sampled, gt_boxes, gt_valid, gt_best_iou)
+        targets = box_ops.encode(gt_boxes.gather(1, match[..., None].expand(-1, -1, 4)), sampled,
+                                 RPN_BOX_WEIGHTS)
+        rows = deltas.reshape(b, -1, a_n * 4).gather(1, cell[..., None].expand(-1, -1, a_n * 4))
+        d_sel = rows.gather(2, atype[..., None] * 4 + torch.arange(4, device=idx.device))
+        reg = (t[..., None] * box_ops.smooth_l1(d_sel - targets, beta=1.0 / 9.0)).sum(dim=(-1, -2)) / n
+        return obj_loss.mean(), reg.mean()
+
+    @torch.no_grad()
+    def sample_proposals(self, rois, roi_valid, gt_boxes, gt_valid, gt_labels, noise):
+        """Match the proposals, with the GT boxes appended, to the GT and
+        sample the box head's minibatch -> {"rois" [b, S, 4], "cls_target"
+        [b, S] (0 = background), "reg_target" [b, S, 4], "is_pos", "take"}.
+        noise [b, P + G] (the sampler's)."""
+        cfg = self.cfg
+        allr = torch.cat([rois, gt_boxes], dim=1)
+        allv = torch.cat([roi_valid, gt_valid], dim=1)
+        iou = torch.where(gt_valid[:, None, :], box_ops.pairwise_iou(allr, gt_boxes), 0.0)
+        best, bidx = iou.max(dim=-1)
+        labels = torch.where(allv, torch.where(best >= cfg.box_fg_thresh, 1, 0), -1)
+        idx, is_pos, take = det.sample_balanced(noise, labels, cfg.box_batch_per_image,
+                                                cfg.box_positive_fraction)
+        sr = allr.gather(1, idx[..., None].expand(-1, -1, 4))
+        m = bidx.gather(1, idx)
+        sgt = gt_boxes.gather(1, m[..., None].expand(-1, -1, 4))
+        cls_target = torch.where(is_pos, gt_labels.gather(1, m), 0)
+        return {"rois": sr, "cls_target": cls_target, "reg_target": box_ops.encode(sgt, sr, ROI_BOX_WEIGHTS),
+                "is_pos": is_pos, "take": take}
+
+    def roi_loss(self, features, sampled):
+        """-> (loss_classifier, loss_box_reg): class CE over the taken
+        samples and smooth-L1 (beta 1) of the target class's deltas over the
+        positives, both over the batch's count of taken samples."""
+        cfg = self.cfg
+        cls, reg = self.box_predictions(self.roi_features(features, sampled["rois"]))
+        b, r = cls.shape[:2]
+        w = sampled["take"].float()
+        n = w.sum().clamp(min=1.0)
+        target = sampled["cls_target"].long()
+        onehot = target[..., None] == torch.arange(cfg.num_classes, device=cls.device)
+        logp = torch.log_softmax(cls, dim=-1)
+        cls_loss = -(w * (onehot * logp).sum(dim=-1)).sum() / n
+        sel = reg.reshape(b, r, cfg.num_classes, 4).gather(2, target[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+        pw = sampled["is_pos"].float()[..., None]
+        reg_loss = (pw * box_ops.smooth_l1(sel - sampled["reg_target"], beta=1.0)).sum() / n
+        return cls_loss, reg_loss
+
+    def forward_train(self, features, gt_boxes, gt_valid, gt_labels, generator=None, noise=None):
+        """-> {"loss_classifier", "loss_box_reg", "loss_objectness",
+        "loss_rpn_box_reg"}. The samplers' noise is `noise` ({"rpn", "roi"},
+        as `draw_noise` gives) or drawn from `generator`."""
+        if noise is None:
+            noise = self.draw_noise(features.shape[0], gt_boxes.shape[1], generator, features.device)
+        obj, dl = self.rpn_forward(features)
+        loss_obj, loss_rpn_reg = self.rpn_loss(obj, dl, gt_boxes, gt_valid, noise["rpn"])
+        with torch.no_grad():
+            rois, rv, _ = self.proposals(obj.detach(), dl.detach())
+        sampled = self.sample_proposals(rois, rv, gt_boxes, gt_valid, gt_labels, noise["roi"])
+        loss_cls, loss_reg = self.roi_loss(features, sampled)
+        return {"loss_classifier": loss_cls, "loss_box_reg": loss_reg,
+                "loss_objectness": loss_obj, "loss_rpn_box_reg": loss_rpn_reg}
 
     def postprocess_detections(self, rois, roi_valid, scores, reg):
         """Per-class decode -> clip -> drop background class 0 -> score floor

@@ -30,7 +30,10 @@ whose channels or address do not allow 16-B loads): both read the same
 taps with the same f32 weights (the sample coordinates are computed
 without fma contraction on both sides), and each output is a convex
 combination of 16 taps whose products and sums round in another order, at
-most about 16 f32 ulps of the largest value.
+most about 16 f32 ulps of the largest value. Its backward (B3-bwd) within
+1e-5 (f32) / 2^-6 (bf16) of max|plain| (reasons beside ROI_BWD_TOL), bit
+for bit the same on a second launch, at either load width, and under
+autograd launched by RoIAlign's backward with no plain version reached.
 A box-family training step (spatial_bb, multitask; small geometry, batch
 4, everything trainable) through the kernels against the same step with
 the plain trunk and rasterizer patched in, from one init and one dropout
@@ -64,6 +67,16 @@ from driving_dirty_tpu_torch.ops import quant as Q
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": 2e-4, "bfloat16": 2.0 ** -6}
 ROI_TOL = 4e-6
+# B3-bwd against roialign_backward_plain, max |error| <= this * max|plain|:
+# f32: both sum in f32, the kernel sample by sample in roi order, the plain
+# version through the bin interpolation matrices; the sample-level sums lie
+# within 6.4e-6 of the largest value from a float64 sum where 1001 rois
+# crowd a 21 x 30 map, the plain version's within 2.2e-7 (measured on the
+# CPU, the sample-level sums by autograd through roialign_plain): 1e-5. bf16: the
+# plain version rounds By, Bx, g and u to bf16 as the JAX package does (its
+# error from float64 measured up to 3.95e-3 of the largest value), the
+# kernel rounds its f32 sum once (2^-9 of each value): 2^-6.
+ROI_BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
 GRAD_TOL = 1e-4
 
 
@@ -375,8 +388,99 @@ def test_roialign_kernel_rejects_what_it_does_not_take():
         RA.roialign(feats, rois.cpu())
     with pytest.raises(ValueError):
         RA.roialign(feats, rois, output_size=128, sampling_ratio=4)
-    with pytest.raises(NotImplementedError):
-        RA.roialign(feats.requires_grad_(), rois)
+    g = torch.zeros((2, 3, 7, 7, 4), device="cuda")
+    with pytest.raises(TypeError):
+        RA.roialign_backward(g.double(), rois, feats.shape, torch.float32)
+    with pytest.raises(TypeError):
+        RA.roialign_backward(g, rois, feats.shape, torch.float16)
+    with pytest.raises(ValueError):
+        RA.roialign_backward(g[:, :2], rois, feats.shape, torch.float32)
+    with pytest.raises(ValueError):
+        RA.roialign_backward(g, rois.cpu(), feats.shape, torch.float32)
+
+
+def _roialign_grad(b, h, w, c, r, seed=0, offset=0):
+    """A seeded float32 gradient of RoIAlign's output [b, r, 7, 7, c] on the
+    card, its data `offset` floats past an allocation, and seeded rois."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = b * r * 49 * c
+    g = torch.randn(n + offset, generator=gen, device="cuda")[offset:].view(b, r, 7, 7, c)
+    rois = torch.from_numpy(detection_rois(seed, b, r, size=2 * max(h, w))).cuda()
+    return g, rois
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,kw", [
+    ((8, 400, 400, 32, 512), dict(spatial_scale=0.5)),               # the detection training path's shape
+    ((2, 37, 53, 24, 1), dict(spatial_scale=0.5)),                   # odd H and W, C not 32, R = 1
+    ((1, 21, 30, 40, 1001), dict(spatial_scale=0.5, aligned=True)),  # C over one 32-channel pass
+    ((3, 16, 19, 3, 33), dict(output_size=5, sampling_ratio=3, spatial_scale=0.25)),
+])
+def test_roialign_backward_matches_plain_on_gpu(shape, kw, dtype):
+    """B3-bwd against roialign_backward_plain: f32 within 1e-5 of
+    max|plain|, bf16 within 2^-6 (tolerances in ROI_BWD_TOL's comment)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, h, w, c, r = shape
+    out = kw.get("output_size", 7)
+    g, rois = _roialign_grad(b, h, w, c, r)
+    g = g[:, :, :out, :out].contiguous()
+    dt = getattr(torch, dtype)
+    launches = RA.roialign_backward.launches
+    got = RA.roialign_backward(g, rois, (b, h, w, c), dt, **kw)
+    again = RA.roialign_backward(g, rois, (b, h, w, c), dt, **kw)
+    ref = RA.roialign_backward_plain(g, rois, (b, h, w, c), dt, **kw)
+    torch.cuda.synchronize()
+    assert RA.roialign_backward.launches == launches + 2
+    assert got.dtype == dt and got.shape == ref.shape == (b, h, w, c)
+    assert torch.equal(got, again)  # no atomics: the same bits on every launch
+    assert (got.float() - ref.float()).abs().max().item() <= ROI_BWD_TOL[dtype] * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,offset,vec", [(32, 0, 4), (3, 0, 1), (32, 1, 1)])
+def test_roialign_backward_each_load_width_on_gpu(c, offset, vec):
+    """16-B loads of g where C % 4 == 0 and g starts on 16 B; otherwise one
+    float at a time (C = 3; g 4 B off 16-B alignment)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, h, w, r = 2, 37, 53, 67
+    g, rois = _roialign_grad(b, h, w, c, r, seed=c + offset, offset=offset)
+    assert RA.grad_channels_per_load(g) == vec
+    got = RA.roialign_backward(g, rois, (b, h, w, c), torch.float32, spatial_scale=0.5)
+    ref = RA.roialign_backward_plain(g, rois, (b, h, w, c), torch.float32, spatial_scale=0.5)
+    assert (got - ref).abs().max().item() <= ROI_BWD_TOL["float32"] * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_roialign_autograd_runs_both_kernels_on_gpu(monkeypatch, dtype):
+    """Under autograd, roialign on a CUDA tensor launches B3 forward and
+    B3-bwd once each and never reaches a plain version; the rois get no
+    gradient, and the features' gradient is B3-bwd's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    feats, rois = _roialign_inputs(2, 40, 40, 32, 16, dtype)
+    g, _ = _roialign_grad(2, 40, 40, 32, 16, seed=3)
+    ref = RA.roialign_backward(g, rois, feats.shape, feats.dtype, spatial_scale=0.5)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(RA, "roialign_plain", refuse)
+    monkeypatch.setattr(RA, "roialign_backward_plain", refuse)
+    feats.requires_grad_()
+    rois.requires_grad_()
+    fwd, bwd = RA.roialign.launches, RA.roialign_backward.launches
+    out = RA.roialign(feats, rois, spatial_scale=0.5)
+    # the box head flattens the pooled bins channel-major before its MLP, so
+    # the gradient reaches RoIAlign strided
+    out.permute(0, 1, 4, 2, 3).reshape(2, 16, -1).backward(g.permute(0, 1, 4, 2, 3).reshape(2, 16, -1))
+    torch.cuda.synchronize()
+    assert (RA.roialign.launches, RA.roialign_backward.launches) == (fwd + 1, bwd + 1)
+    assert rois.grad is None and feats.grad.dtype == feats.dtype
+    assert torch.equal(feats.grad, ref)
 
 
 def _int8_inputs(shape, seed=0):
