@@ -128,7 +128,7 @@
    geometry, max_bb 100, seeded box scenes from data/boxes.py), each from
    one init: 3 Adam steps (train/optim.py:Adam, the trainer's) with the
    freeze mask of epoch 0 (encoder frozen), then 2 with the mask of epoch 20
-   (everything trains, B1's gradient through TrunkFunction), against the
+   (everything trains, B1's gradient through its op's backward), against the
    same steps with the plain trunk and rasterizer patched in (the same
    dropout draws from one seeded generator): loss trajectories within
    LOSS_TOL, the B2 targets equal to the plain rasterizer's, B1 once a step
@@ -199,7 +199,31 @@
    metrics.jsonl), the device idle share over its last training epoch (or
    run_test's timed loop) under torch.profiler, its peak device memory and
    B1 launches, beside the bare loop's figures from step 8.
-10. Prints the card's name and power limit, one JSON line of kernel records,
+10. Decode phase: whether g++ finds jpeglib.h and png.h, whether the
+   native decoder (data/_native.py) builds and why not, the bytes where it
+   differs from PIL on the synthetic dataset, cli.run_test at precision 32
+   and 8 and the first step of a cli.roadmap epoch with each decoder that
+   builds (scenes/s, idle share, decodes by backend from
+   data/dataset.py:DECODES), and metrics/threat.py:ats_bounding_boxes on
+   the host, the native IoU loop against Python on the detection phase's
+   scenes (equal values, ms a call).
+11. Deploy phase: the roadmap checkpoint of step 4 at precision 32, 16 and
+   8, the faster_rcnn_rm one of step 7 at 32 and 16, the multitask one of
+   step 5 and a spatial_rm one from the seed, each exported at batch 8
+   (export.py, traced on the card), then loaded and served in a fresh
+   process (scripts/serve_artifacts.py): no model module imported by the
+   loads; B1, B1-int8 and B3 launched a request as each model's predict
+   launches them; after a warm-up, three windows of 50 requests of 8 uint8
+   scenes a path, alternating between the artifact and the same model's
+   predict on the same inputs (scenes/s of each window, median and range;
+   ms a request, median and 10th / 90th percentile; device ops under
+   torch.profiler); their answers on 10 distinct requests equal at
+   precision 32, within the serving phases' bars at 16 and 8; one HTTP
+   round trip on 127.0.0.1, port 0; swap_params from a second checkpoint
+   (masks changed, equal to its predict's) and the refusal of a drifted
+   state.
+12. Prints the card's name and power limit, one JSON line of kernel records
+   (with each kernel's launches a request from the artifacts of step 11),
    and last the JSON line {"ok": true, "device": {...}}.
 
 TF32 is off for cuDNN and cuBLAS in every phase (printed at each).
@@ -211,8 +235,10 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -223,6 +249,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+from PIL import Image
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -238,8 +265,11 @@ from driving_dirty_tpu_torch.cli.run_test import load_roadmap_model
 from driving_dirty_tpu_torch.core import layers as L
 from driving_dirty_tpu_torch.data.boxes import (adversarial_boxes, box_scenes, detection_rois,
                                                 detection_scenes)
+from driving_dirty_tpu_torch import export as ddx
+from driving_dirty_tpu_torch.data import dataset as dataset_module
 from driving_dirty_tpu_torch.data.synthetic import generate
 from driving_dirty_tpu_torch.export import load_task_ckpt, save_task_ckpt
+from driving_dirty_tpu_torch.metrics import threat as threat_module
 from driving_dirty_tpu_torch.kernels import build
 from driving_dirty_tpu_torch.kernels import trunk as trunk_module
 from driving_dirty_tpu_torch.kernels.raster import raster, raster_plain
@@ -276,6 +306,8 @@ PANO = (VIEW_H, 6 * VIEW_W)          # 256 x 1836, the roadmap path's trunk inpu
 PROBE_RUNS = ((torch.float32, BATCH), (torch.bfloat16, BATCH), (torch.bfloat16, 64))  # B1' (dtype, batch)
 LAYOUT = (800, 800)                  # the detection path's trunk input (the layout image)
 REQUESTS = 5                         # timed requests per precision, after one warm-up
+DEPLOY_REQUESTS = 50                 # phase 11: requests in each timed window of a path
+DEPLOY_POOL = 10                     # phase 11: distinct requests, cycled through by the windows
 HPARAMS = dict(ae_hidden_dim=128, ae_latent_dim=64, pretrained_path=None, batch_size=BATCH)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s by type
@@ -439,6 +471,21 @@ BOX_TRAIN_TASKS = (BBSpatialModel, BBSpatialRoadMap, MultiTask, Boxes)
 # many labeled scenes of CLI_SAMPLES samples: the 80/20 scene split leaves 4
 # scenes (4 batches of 8) to train on and 1 (1 batch) to validate, per task.
 CLI_SCENES, CLI_SAMPLES, CLI_BATCHES, CLI_EPOCHS = 5, 8, 4, 2
+# Decode phase (10): the native decoder's headers, and the steps of the
+# cli.roadmap epoch whose first step shows the loader's start
+NATIVE_HEADERS = ("jpeglib.h", "png.h")
+DECODE_STEPS = 3
+# Deploy phase (11): (kind, precision) -> the checkpoint of an earlier phase
+# exported at batch BATCH, and the (B1, B1-int8, B3) launches a request of
+# each artifact: what its model's predict launches
+DEPLOY_EXPORTS = {("roadmap", 32): "roadmap_bce.ckpt", ("roadmap", 16): "roadmap_bce.ckpt",
+                  ("roadmap", 8): "roadmap_bce.ckpt", ("detection", 32): "faster_rcnn_rm.ckpt",
+                  ("detection", 16): "faster_rcnn_rm.ckpt", ("multitask", 32): "multitask.ckpt",
+                  ("spatial", 32): "spatial_rm.ckpt"}
+DEPLOY_NAMES = {f"{kind}_{precision}": (kind, precision) for kind, precision in DEPLOY_EXPORTS}
+DEPLOY_LAUNCHES = {("roadmap", 32): (1, 0, 0), ("roadmap", 16): (1, 0, 0), ("roadmap", 8): (0, 1, 0),
+                   ("detection", 32): (1, 0, 1), ("detection", 16): (1, 0, 1), ("multitask", 32): (1, 0, 0),
+                   ("spatial", 32): (1, 0, 0)}
 CLI_AE_STOP = 5  # --max_steps of the interrupted basic_ae and multitask runs: mid-epoch 1
 CLI_IMG_FREQ = 2  # --output_img_freq of cli.spatial_bb: log_images at batches 0 and 2 of each epoch
 # train_loss of the resumed basic_ae steps against the uninterrupted run's,
@@ -1663,7 +1710,7 @@ def precision8_phase(tmp: Path, smi: str, p16: dict) -> dict:
 
 def trunk_grad_phase(gen) -> dict:
     """The trunk under autograd at [8, 256, 1836, 3] f32: the kernel forward
-    with the plain backward (TrunkFunction) against autograd through the
+    with the op's plain backward (kernels/trunk.py:trunk_vjp) against autograd through the
     plain trunk, for x and all six parameters and one seeded cotangent;
     then both forward + backward timed."""
     x, params = trunk_args(gen, torch.float32, (BATCH, *PANO, 3))
@@ -1998,20 +2045,27 @@ DET_COUNTERS = {"trunk_launches": lambda: trunk.launches, "roialign_launches": l
                 "weight_builds": lambda: prepare_weights.calls, "nms_checks": lambda: det.nms_fixed.checks}
 
 
-def device_ms_per_call(fn, calls: int = 10) -> float:
+def device_ms_per_call(fn, calls: int = 10, tries: int = 3) -> float:
     """Device time per call of fn(): every kernel and copy it runs, from
-    torch.profiler over `calls` calls after a warm-up."""
+    torch.profiler over `calls` calls after a warm-up. Now and then the
+    profiler hands back a window with no device activity at all (seen once
+    in a whole run, on B3's 0.05-ms calls, which other runs traced): such a
+    window is taken again, up to `tries` in all, and the retry printed."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(device_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
-    if not us:
-        raise RuntimeError("the profiler traced no device time")
-    return us / 1e3 / calls
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(device_us(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+        if us:
+            if attempt:
+                print(f"device_ms_per_call: {attempt} profiler window(s) traced no device time before this one",
+                      flush=True)
+            return us / 1e3 / calls
+    raise RuntimeError(f"the profiler traced no device time in {tries} windows")
 
 
 def det_stage_ms(model, batch, smi: str) -> dict:
@@ -2047,7 +2101,7 @@ def det_stage_ms(model, batch, smi: str) -> dict:
 
     stages = {
         "B1 forward [8, 800, 800, 3]": lambda: trunk(x.detach(), *[p.detach() for p in params]),
-        "B1 forward + TrunkFunction backward (plain recompute, cuDNN dgrad and wgrad)":
+        "B1 forward + its op's backward (plain recompute, cuDNN dgrad and wgrad)":
             lambda: trunk(xg, *params).backward(g3),
         "RPN convs forward + backward": lambda: sum(t.sum() for t in head.rpn_forward(feats.detach())).backward(),
         "match_labels_grid (2.4M anchors x 100 GT an image)":
@@ -2771,7 +2825,250 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 10: decode and host metrics
+# ---------------------------------------------------------------------------
+
+def native_headers() -> dict:
+    """{header: whether g++ finds it} for the native decoder's headers."""
+    out = {}
+    for header in NATIVE_HEADERS:
+        proc = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"], input=f"#include <cstdio>\n#include <{header}>\n",
+                              capture_output=True, text=True)
+        out[header] = proc.returncode == 0
+    return out
+
+
+@contextmanager
+def decoder(native: bool):
+    """The dataset decodes natively where it builds (native=True) or through
+    PIL (DD_NATIVE_DECODE=0), probed anew; DECODES counts from 0."""
+    old = os.environ.get("DD_NATIVE_DECODE")
+    os.environ["DD_NATIVE_DECODE"] = "1" if native else "0"
+    dataset_module._native = False
+    for k in dataset_module.DECODES:
+        dataset_module.DECODES[k] = 0
+    try:
+        yield dataset_module._native_decoder()
+    finally:
+        if old is None:
+            del os.environ["DD_NATIVE_DECODE"]
+        else:
+            os.environ["DD_NATIVE_DECODE"] = old
+        dataset_module._native = False
+
+
+def decode_bytes_phase(data: Path, nat) -> dict:
+    """Every view and ego map of the synthetic dataset decoded natively and
+    by PIL: the bytes that differ, and the host ms an image each way."""
+    files = sorted(data.glob("scene_*/sample_*/*.jpeg")) + sorted(data.glob("scene_*/sample_*/ego.png"))
+    differing, ms = 0, {"native": 0.0, "pil": 0.0}
+    for path in files:
+        shape = (800, 800) if path.suffix == ".png" else (VIEW_H, VIEW_W)
+        t0 = time.perf_counter()
+        a = nat.decode_image(str(path), *shape, raw_uint8=True)
+        t1 = time.perf_counter()
+        with Image.open(path) as im:
+            b = np.asarray(im.convert("RGB"), np.uint8)
+        t2 = time.perf_counter()
+        ms["native"] += 1e3 * (t1 - t0)
+        ms["pil"] += 1e3 * (t2 - t1)
+        differing += int((a != b).sum())
+    return {"files": len(files), "differing_bytes": differing,
+            "ms_per_image": {k: v / len(files) for k, v in ms.items()}}
+
+
+def first_step_wait(label: str, data: Path, ae_ckpt: Path, tmp: Path, smi: str) -> dict:
+    """One cli.roadmap epoch of DECODE_STEPS steps over the frozen encoder:
+    its first step_ms (the loader's start: the first batch's decode) beside
+    the median of the others."""
+    root = tmp / "cli_decode"
+    argv = ["--link", str(data), "--samples_per_scene", str(CLI_SAMPLES), "--batch_size", str(BATCH),
+            "--precision", "32", "--max_epochs", "1", "--limit_train_batches", str(DECODE_STEPS),
+            "--limit_val_batches", "1", "--log_every_n_steps", "1", "--output_img_freq", "0", "--seed", str(SEED),
+            "--variant", "bce_v2", "--num_labeled_scenes", str(CLI_SCENES), "--pretrained_path", str(ae_ckpt),
+            "--default_root_dir", str(root)]
+    fit, rec = cli_run(label, cli_roadmap.main, argv, smi)
+    del fit
+    step_ms = [r["step_ms"] for r in metrics_records(root, "roadmap_bce") if "step_ms" in r]
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    out = {"first_step_ms": step_ms[0], "median_other_ms": statistics.median(step_ms[1:]), "step_ms": step_ms,
+           "decodes": dict(dataset_module.DECODES)}
+    print(f"{label} ({smi}): first step {out['first_step_ms']:.1f} ms, the others' median "
+          f"{out['median_other_ms']:.1f} ms; decodes {out['decodes']}", flush=True)
+    return out
+
+
+def ats_timing(smi: str) -> dict:
+    """metrics/threat.py:ats_bounding_boxes on the host, the native IoU loop
+    against the Python one, on the detection phase's scenes: each image's
+    valid ground-truth boxes against a copy jittered by 0.2 m plus as many
+    random boxes. The two values must be equal."""
+    pairs = []
+    rng = np.random.RandomState(SEED + 30)
+    for batch in detection_batches():
+        boxes, valid = batch["boxes"].cpu().numpy(), batch["box_valid"].cpu().numpy()
+        for b, v in zip(boxes, valid):
+            gt = b[v].astype(np.float64)
+            pred = np.concatenate([gt + rng.normal(0, 0.2, gt.shape), gt[::-1] + rng.normal(0, 3.0, gt.shape)])
+            pairs.append((pred, gt))
+    if threat_module._native_iou() is None:
+        raise RuntimeError("the native IoU loop (metrics/_native.py) did not build")
+    out = {"images": len(pairs), "boxes_per_image": float(np.mean([len(g) for _, g in pairs]))}
+    values = {}
+    for name, patch in (("native", nullcontext()), ("python", mock.patch.object(threat_module, "_native_iou",
+                                                                                lambda: None))):
+        with patch:
+            t0 = time.perf_counter()
+            values[name] = [threat_module.ats_bounding_boxes(p, g) for p, g in pairs]
+            out[f"{name}_ms_per_call"] = 1e3 * (time.perf_counter() - t0) / len(pairs)
+    if values["native"] != values["python"]:
+        raise RuntimeError("ats_bounding_boxes: the native and the Python IoU loops disagree")
+    out["mean_ats"] = float(np.mean(values["native"]))
+    print(f"ats_bounding_boxes ({smi}, host): native {out['native_ms_per_call']:.3f} ms, Python "
+          f"{out['python_ms_per_call']:.3f} ms a call over {len(pairs)} images of "
+          f"{out['boxes_per_image']:.1f} boxes; equal values (mean {out['mean_ats']:.4f})", flush=True)
+    return out
+
+
+def decode_phase(tmp: Path, smi: str, rm_ckpt: Path, ae_ckpt: Path) -> dict:
+    """Phase 10: which decoder the dataset uses on this machine and why, its
+    bytes against PIL's, cli.run_test at precision 32 and 8 and the first
+    step of a cli.roadmap epoch with each decoder (PIL alone where the
+    native one does not build), and the host box threat score."""
+    t_phase = time.perf_counter()
+    data = tmp / "cli_data"
+    if not data.exists():
+        generate(str(data), scenes=CLI_SCENES, samples=CLI_SAMPLES, labeled_scenes=CLI_SCENES, seed=SEED)
+    headers = native_headers()
+    with decoder(True) as nat:
+        build_error = dataset_module.native_error()
+    print(f"decode ({smi}): headers {headers}; native decoder "
+          f"{'built' if nat is not None else 'unavailable'}" + (f"; build error: {build_error}" if build_error else ""),
+          flush=True)
+    out = {"headers": headers, "native": nat is not None, "build_error": build_error}
+    if nat is not None:
+        out["bytes"] = decode_bytes_phase(data, nat)
+        print(f"decode ({smi}): {out['bytes']['differing_bytes']} bytes differ from PIL over "
+              f"{out['bytes']['files']} files; host ms an image native {out['bytes']['ms_per_image']['native']:.3f}, "
+              f"PIL {out['bytes']['ms_per_image']['pil']:.3f}", flush=True)
+    else:
+        print(f"decode ({smi}): bytes against PIL not measured (no native decoder)", flush=True)
+    backends = (True, False) if nat is not None else (False,)
+    rt_argv = ["--rm_ckpt_path", str(rm_ckpt), "--link", str(data), "--num_labeled_scenes", str(CLI_SCENES),
+               "--samples_per_scene", str(CLI_SAMPLES), "--batch_size", str(BATCH)]
+    for native in backends:
+        name = "native" if native else "pil"
+        for precision in (32, 8):
+            label = f"cli.run_test --precision {precision}, {name} decode"
+            with decoder(native):
+                res, rec = cli_run(label, cli_run_test.main, rt_argv + ["--precision", str(precision)], smi,
+                                   ranges=("run_test predict",))
+                decodes = dict(dataset_module.DECODES)
+            if decodes["native" if native else "pil"] == 0 or decodes["pil" if native else "native"]:
+                raise RuntimeError(f"{label}: decodes {decodes}")
+            idle = rec["ranges"]["run_test predict"]["idle_share"]
+            print(f"{label} ({smi}): {res['scenes_per_sec']:.1f} scenes/s, idle share {idle:.3f}, "
+                  f"decodes {decodes}", flush=True)
+            out[f"run_test_{precision}_{name}"] = {"scenes_per_s": res["scenes_per_sec"], "idle_share": idle,
+                                                   "decodes": decodes}
+            torch.cuda.empty_cache()
+        with decoder(native):
+            out[f"first_step_{name}"] = first_step_wait(f"cli.roadmap epoch, {name} decode", data, ae_ckpt,
+                                                        tmp, smi)
+    out["ats"] = ats_timing(smi)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"decode phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: export and serve
+# ---------------------------------------------------------------------------
+
+def hold_artifact(label: str, kind: str, precision: int, rec: dict) -> None:
+    """A served answer against the model's own predict on the same f32
+    inputs (scripts/serve_artifacts.py measured them). At precision 32 the
+    two must be equal: they run the same operations and kernels on the same
+    inputs. At 16 and 8, the serving phases' bars."""
+    if precision == 32 and not rec["exact"]:
+        raise RuntimeError(f"{label}: outputs differ from predict's: {rec}")
+    if kind in ("roadmap", "multitask"):
+        bar = MASK_AGREEMENT.get(precision, P8_AGREEMENT)
+        if rec["mask_agreement"] < bar:
+            raise RuntimeError(f"{label}: masks agree with predict on {rec['mask_agreement']} < {bar}")
+    if kind in ("multitask", "spatial") and rec["occupancy_err"] > BOX_TOL[precision] * rec["occupancy_max"]:
+        raise RuntimeError(f"{label}: box occupancy {rec['occupancy_err']} from predict's")
+    if kind == "detection" and rec["found_share"] < DET_AGREEMENT:
+        raise RuntimeError(f"{label}: found {rec['found_share']} of predict's detections")
+
+
+def deploy_phase(tmp: Path, smi: str) -> dict:
+    """Phase 11: the checkpoints of phases 4, 5 and 7 (and a spatial_rm one
+    from a seed) exported at batch 8, then loaded and served in a fresh
+    process (scripts/serve_artifacts.py), whose numbers are held here: no
+    model module imported by the loads, each artifact's kernels launched as
+    its model's path launches them, its answers against the model's own
+    predict, the HTTP round trip, and swap_params (a second checkpoint's
+    masks; a drifted state refused)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    save_task_ckpt(tmp / "spatial_rm.ckpt", BBSpatialRoadMap(BOX_HPARAMS, device="cuda", generator=gen))
+    save_task_ckpt(tmp / "roadmap_bce_2.ckpt", RoadMapBCEv2(HPARAMS, device="cuda", generator=gen))
+    torch.cuda.empty_cache()
+    calib = {"images": request_images(np.random.RandomState(SEED + 41), 1)[0],
+             "road": detection_scenes(SEED + 42, BATCH, MAX_BB, DET_SIZE)["road"]}
+    np.savez(tmp / "calib.npz", **calib)
+    exporters = {"roadmap": ddx.export_roadmap, "detection": ddx.export_detection,
+                 "multitask": ddx.export_multitask, "spatial": ddx.export_spatial}
+    spec = {"artifacts": [], "calib": str(tmp / "calib.npz"), "swap": str(tmp / "roadmap_bce_2.ckpt"),
+            "out": str(tmp / "deploy.json"), "batch": BATCH, "requests": DEPLOY_REQUESTS, "pool": DEPLOY_POOL,
+            "seed": SEED + 43}
+    exports = {}
+    for (kind, precision), ckpt in DEPLOY_EXPORTS.items():
+        name, art = f"{kind}_{precision}", tmp / f"{kind}_{precision}.ddx"
+        kw = {}
+        if precision == 8:
+            kw = {"calib": calib} if kind == "detection" else {"calib_images": calib["images"]}
+        t0 = time.perf_counter()
+        meta = exporters[kind](str(tmp / ckpt), str(art), batch_size=BATCH, precision=precision, device="cuda",
+                               **kw)
+        exports[name] = {"seconds": time.perf_counter() - t0, "mb": art.stat().st_size / 1e6, "task": meta["task"]}
+        print(f"export {meta['task']} precision {precision} ({smi}): {exports[name]['mb']:.1f} MB in "
+              f"{exports[name]['seconds']:.1f} s", flush=True)
+        spec["artifacts"].append({"name": name, "kind": kind, "precision": precision, "path": str(art),
+                                  "ckpt": str(tmp / ckpt)})
+        torch.cuda.empty_cache()
+    (tmp / "deploy_spec.json").write_text(json.dumps(spec))
+    proc = subprocess.run([sys.executable, "-m", "driving_dirty_tpu_torch.scripts.serve_artifacts",
+                           str(tmp / "deploy_spec.json")], cwd=Path(__file__).resolve().parent, timeout=900)
+    for a in spec["artifacts"]:
+        Path(a["path"]).unlink()
+    if proc.returncode != 0:
+        raise RuntimeError(f"scripts/serve_artifacts.py failed (exit {proc.returncode})")
+    out = json.loads((tmp / "deploy.json").read_text())
+    if out["model_modules_after_load"]:
+        raise RuntimeError(f"loading the artifacts imported {out['model_modules_after_load']}")
+    for name, rec in out["artifacts"].items():
+        kind, precision = DEPLOY_NAMES[name]
+        expect(f"{name} artifact (B1, B1-int8, B3) launches a request", tuple(rec["launches_per_request"]),
+               DEPLOY_LAUNCHES[(kind, precision)])
+        hold_artifact(f"{name} artifact", kind, precision, rec)
+        rec.update(exports[name])
+    if not (out["http"]["masks_equal_served"] and out["http"]["healthz_task"] == "roadmap_bce"):
+        raise RuntimeError(f"HTTP round trip: {out['http']}")
+    swap = out["swap"]
+    if not (swap["exact"] and swap["changed_share"] > 0 and swap["drifted_state_refused"]):
+        raise RuntimeError(f"swap_params: masks equal to the second checkpoint's predict, changed by the "
+                           f"swap and a drifted state refused, got {swap}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"deploy phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -2786,6 +3083,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.BUILD_LOG.items():
         print(f"ptxas [{name}]:\n{log.strip()}", flush=True)
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = kernel_phase(gen)
@@ -2812,6 +3112,8 @@ def main() -> int:
         box_training = box_training_phase(training["ae_ckpt"], smi)
         det_training = det_training_phase(training["ae_ckpt"], smi)
         trainer = trainer_phase(Path(tmp), smi, training)
+        decode = decode_phase(Path(tmp), smi, ckpt, training["ae_ckpt"])
+        deploy = deploy_phase(Path(tmp), smi)
 
     box_names = [cls.name for cls in BOX_TRAIN_TASKS]
     box_clis = ("spatial_rm", "multitask", "bb_mlp")
@@ -2847,6 +3149,21 @@ def main() -> int:
         if r["path"] == "roadmap":
             r["cli_launches"] = {"run_test_8": trainer["run_test_8"]["trunk_int8_launches"],
                                  "roadmap_bce_8": trainer["roadmap_bce_8"]["trunk_int8_launches"]}
+    # the launches a request of the artifacts of phase 11 that run each kernel
+    art = {name: rec["launches_per_request"] for name, rec in deploy["artifacts"].items()}
+    for r in records:
+        if r["name"] == "trunk":
+            names = (("roadmap_32",) if r["dtype"] == "float32" else ("roadmap_16",)) if r["path"] == "roadmap" \
+                else (("detection_32",) if r["dtype"] == "float32" else ("detection_16",))
+            if r["path"] == "roadmap" and r["dtype"] == "float32":
+                names += ("multitask_32", "spatial_32")
+            r["artifact_launches_per_request"] = {n: art[n][0] for n in names}
+    for r in int8_recs:
+        if r["path"] == "roadmap":
+            r["artifact_launches_per_request"] = {"roadmap_8": art["roadmap_8"][1]}
+    for r in roialign_recs:
+        name = "detection_32" if r["dtype"] == "float32" else "detection_16"
+        r["artifact_launches_per_request"] = {name: art[name][2]}
     records += int8_recs + int8_variant_recs + roialign_recs + roialign_bwd_recs + variant_recs
     f32_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "float32")
     f32_path["cli_launches"] = {k: trainer[k]["trunk_launches"]
@@ -2864,7 +3181,8 @@ def main() -> int:
     bf16_det["cli_launches"] = {"faster_rcnn_rm_16": trainer["faster_rcnn_rm_16"]["trunk_launches"]}
     print(json.dumps({"serving": served, "box_family": boxes, "detection": detection,
                       "precision8": precision8, "training": training, "box_training": box_training,
-                      "det_training": det_training, "trainer": trainer}, default=str))
+                      "det_training": det_training, "trainer": trainer, "decode": decode, "deploy": deploy},
+                     default=str))
     print(smi)
     print(json.dumps({"kernels": records}))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)

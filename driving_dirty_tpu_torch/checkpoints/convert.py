@@ -152,6 +152,20 @@ def to_jax(state_dict, *, transposed=()) -> tuple[dict, dict]:
     return trees["params"], trees["state"]
 
 
+def param_places(model) -> list[tuple[str, str, tuple | None]]:
+    """(the parameter's '/'-joined JAX name, its name in `model`, the
+    permutation from its torch layout to the JAX one or None) for every
+    parameter of `model`, sorted by JAX name (the argument order of the
+    export programs, export.py)."""
+    keys = model.state_dict(keep_vars=True)
+    transposed = transposed_paths(model)
+    placed = []
+    for name, p in model.named_parameters():
+        _, path, perm = _jax_place(name, p.ndim, keys, transposed)
+        placed.append((path.replace(".", "/"), name, perm))
+    return sorted(placed)
+
+
 def param_layouts(model) -> list[tuple[str, tuple | None]]:
     """(parameter name, permutation from its torch layout to the JAX one or
     None) for every parameter of `model`, in the order jax.tree.leaves

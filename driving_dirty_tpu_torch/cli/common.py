@@ -11,7 +11,7 @@ here:
   --device        where to train: cuda (the default) or cpu. There is no
                   fallback: without a card, cuda raises.
   --remat         accepted; the port's trunk always recomputes in its
-                  backward (kernels/trunk.py:TrunkFunction).
+                  backward (kernels/trunk.py:trunk_vjp).
   --distributed_backend   accepted and ignored, as in the JAX package.
   --precision 8   trains in bf16, as 16 does (int8 is inference-only);
                   validation runs the trunk in bf16 after a one-time

@@ -11,12 +11,17 @@ Directory layout:
     <root>/annotation.csv
 
 Items are numpy NHWC; targets are fixed-shape (boxes padded to `max_boxes`
-with a validity mask). Decoding is PIL's; the native libjpeg decoder comes
-later.
+with a validity mask). Decoding goes through the native libjpeg/libpng
+decoder (data/_native.py, built with g++ on first use) where it builds,
+and through PIL where it does not, where DD_NATIVE_DECODE=0 asks for PIL,
+or for a file the native decoder refuses (both give the same bytes).
+`DECODES` counts the images each backend decoded and `native_error()`
+says why the native decoder is off, so the choice is never hidden.
 """
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,19 +43,82 @@ UNLABELED_SCENES = np.arange(106)
 LABELED_SCENES = np.arange(106, 134)
 
 
-def _load_image(path, raw_uint8: bool = False):
-    """Decode one JPEG/PNG to RGB HWC (uint8, or f32 in [0,1])."""
+_native = False  # tri-state: False = not probed, None = unavailable, else the module
+_native_error = None
+_count_lock = threading.Lock()
+DECODES = {"native": 0, "pil": 0}  # images decoded by each backend in this process
+
+
+def _count(backend: str, n: int = 1) -> None:
+    with _count_lock:
+        DECODES[backend] += n
+
+
+def _native_decoder():
+    """The native decoder module (data/_native.py), built on first use; None
+    where it cannot build (`native_error()` keeps the reason) or where
+    DD_NATIVE_DECODE=0 asks for PIL."""
+    global _native, _native_error
+    if _native is False:
+        if os.environ.get("DD_NATIVE_DECODE", "1") == "0":
+            _native, _native_error = None, "DD_NATIVE_DECODE=0"
+        else:
+            try:
+                from driving_dirty_tpu_torch.data import _native as mod
+
+                _native, _native_error = mod, None
+            except ImportError as e:
+                _native, _native_error = None, str(e)
+    return _native
+
+
+def native_error():
+    """Why the native decoder is off (its build error, or DD_NATIVE_DECODE=0),
+    or None when it is on or not probed yet."""
+    return _native_error
+
+
+def _load_image(path, raw_uint8: bool = False, shape=None):
+    """Decode one JPEG/PNG to RGB HWC (uint8, or f32 in [0,1]).
+
+    With `shape=(h, w)` the native decoder decodes where it builds (the same
+    bytes as PIL, with no intermediate copies); without a shape, where it
+    is off, or for a file it refuses (another size, a corrupt header), PIL
+    decodes."""
+    if shape is not None:
+        nat = _native_decoder()
+        if nat is not None:
+            try:
+                out = nat.decode_image(path, shape[0], shape[1], raw_uint8=raw_uint8)
+                _count("native")
+                return out
+            except OSError:
+                pass  # an odd file: let PIL try
     from PIL import Image
 
     with Image.open(path) as im:
         if raw_uint8:
-            return np.asarray(im.convert("RGB"), dtype=np.uint8)
-        return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+            arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
+        else:
+            arr = np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+    _count("pil")
+    return arr
 
 
 def _load_sample_images(path, raw_uint8: bool):
-    """All 6 camera views of one sample as a [6, H, W, 3] array."""
-    return np.stack([_load_image(os.path.join(path, n), raw_uint8) for n in IMAGE_NAMES])
+    """All 6 camera views of one sample as a [6, H, W, 3] array: the native
+    decoder writes every view straight into one buffer; PIL's views are
+    stacked."""
+    paths = [os.path.join(path, n) for n in IMAGE_NAMES]
+    nat = _native_decoder()
+    if nat is not None:
+        try:
+            out = nat.decode_batch(paths, IMAGE_H, IMAGE_W, raw_uint8=raw_uint8, nthreads=1)
+            _count("native", len(paths))
+            return out
+        except OSError:
+            pass
+    return np.stack([_load_image(p, raw_uint8) for p in paths])
 
 
 def scene_split(scene_index, train_frac=0.8, seed=None, shuffle=True):
@@ -98,7 +166,9 @@ class UnlabeledDataset:
         sample_id = (index % per_scene) // NUM_IMAGE_PER_SAMPLE
         cam = index % NUM_IMAGE_PER_SAMPLE
         path = self._sample_path(scene_id, sample_id)
-        return _load_image(os.path.join(path, IMAGE_NAMES[cam]), self.raw_uint8), cam
+        img = _load_image(os.path.join(path, IMAGE_NAMES[cam]), self.raw_uint8,
+                          shape=(IMAGE_H, IMAGE_W))
+        return img, cam
 
 
 @dataclass
@@ -158,7 +228,7 @@ class LabeledDataset:
                 actions[:n] = entries["action_id"].to_numpy(np.int32)[:n]
 
         # road = not (R == G == B == 1) on the ego map (helper.py:10-20)
-        ego_chw = np.transpose(_load_image(os.path.join(path, "ego.png")), (2, 0, 1))
+        ego_chw = np.transpose(_load_image(os.path.join(path, "ego.png"), shape=(800, 800)), (2, 0, 1))
         road = (~((ego_chw[0] == 1) & (ego_chw[1] == 1) & (ego_chw[2] == 1))).astype(np.float32)
 
         item = {

@@ -10,10 +10,19 @@ The library lands in `build/` at the root of the checkout, named by a hash of
 the source, the headers of csrc/ and the flags, so an edited source builds anew and an unchanged one
 loads from disk. `load_libraries` starts one nvcc per source at once. A
 missing nvcc or a failed build raises; nothing falls back.
+
+`host_library` builds the port's C++ host helpers (the libjpeg decoder of
+data/native/, the IoU loop of metrics/native/) the same way with g++; their
+callers turn its error into an ImportError and decode or score in Python.
+
+The wrappers that launch these libraries register their kernels as
+torch.library ops in one namespace, OP_NAMESPACE (kernels/ops.py imports
+them all), so that torch.export can trace a model through them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,6 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # shared memory, spills) when this process built it
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
+
+OP_NAMESPACE = "driving_dirty"  # torch.ops.driving_dirty.<op>
+HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 
 def nvcc() -> str:
@@ -82,3 +94,44 @@ def load_libraries(names) -> dict[str, ctypes.CDLL]:
 def load_library(name: str) -> ctypes.CDLL:
     """Build csrc/<name>.cu if its library is not in build/ yet, and load it."""
     return load_libraries([name])[name]
+
+
+@functools.cache
+def _host_target() -> bytes:
+    """What -march=native selects on this machine (g++'s resolved target
+    options), so that a library built for one CPU is never loaded on
+    another from a shared build/."""
+    out = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                         capture_output=True, text=True, check=True).stdout
+    return out.encode()
+
+
+def host_library(name: str, source: Path, libs=()) -> ctypes.CDLL:
+    """Build the C++ source `source` with g++ (HOST_FLAGS, linked with
+    `libs`) into build/lib<name>-<hash>.so unless it is there, and load it.
+    The hash covers the source, the flags, the libraries and the CPU that
+    -march=native targets. A missing compiler, a missing header or library,
+    a failed build and a failed load raise RuntimeError with the message."""
+    if name in _LIBS:
+        return _LIBS[name]
+    cmd_flags = (*HOST_FLAGS, *(f"-l{lib}" for lib in libs))
+    try:
+        target = _host_target()
+    except (OSError, subprocess.CalledProcessError) as e:
+        raise RuntimeError(f"g++ is not usable: {e}") from e
+    h = hashlib.sha256(" ".join(cmd_flags).encode() + target + Path(source).read_bytes())
+    so = BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = ["g++", *HOST_FLAGS, str(source), "-o", str(tmp), *(f"-l{lib}" for lib in libs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed to build {Path(source).name}:\n{proc.stderr.strip()}")
+        os.replace(tmp, so)
+    try:
+        _LIBS[name] = ctypes.CDLL(str(so))
+    except OSError as e:
+        raise RuntimeError(f"cannot load {so.name}: {e}") from e
+    return _LIBS[name]

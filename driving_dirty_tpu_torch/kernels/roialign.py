@@ -28,11 +28,15 @@ once, dF written once: 0.057 ms in f32 at 512 rois an image); each block of
 B3-bwd owns a tile of dF and sums, in roi order, the taps that land in it,
 with no atomics, so its result does not change from launch to launch.
 
-`roialign` launches B3 on a CUDA tensor through `RoIAlignFunction`, whose
-backward launches B3-bwd (`roialign_backward`) and gives the rois no
-gradient; on a CPU tensor it is `roialign_plain` (a direct bilinear gather
-in f32) under ordinary autograd, and `roialign_backward` on a CPU tensor is
-`roialign_backward_plain`.
+`roialign` calls the torch.library op `torch.ops.driving_dirty.roialign`
+(`roialign_op`), so that torch.export traces the detection models through
+it: on a CUDA tensor the op launches B3, on a CPU tensor it is
+`roialign_plain` (a direct bilinear gather in f32). Its backward gives the
+rois no gradient (the JAX VJP's zeros) and the features theirs: B3-bwd
+(`roialign_backward`) on the card; on the CPU the gradient of
+`roialign_plain` recomputed, as ordinary autograd through it gives.
+`roialign_backward` on a CPU tensor is `roialign_backward_plain`. B3-bwd
+itself stays a plain ctypes call: no exported program reaches it.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ import functools
 import numpy as np
 import torch
 
-from driving_dirty_tpu_torch.kernels.build import load_library
+from driving_dirty_tpu_torch.kernels.build import OP_NAMESPACE, load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _WIDE = {torch.float32: 4, torch.bfloat16: 8}  # channels in 16 B
@@ -199,6 +203,14 @@ def _call(name, dtype, vec, src, rois, dst, shape, r, output_size, sampling_rati
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
 
+@torch.library.custom_op(f"{OP_NAMESPACE}::roialign", mutates_args=(), device_types="cpu")
+def roialign_op(features: torch.Tensor, rois: torch.Tensor, output_size: int, spatial_scale: float,
+                sampling_ratio: int, aligned: bool) -> torch.Tensor:
+    """B3 as a torch.library op: the plain version on a CPU tensor."""
+    return roialign_plain(features, rois, output_size, spatial_scale, sampling_ratio, aligned)
+
+
+@roialign_op.register_kernel("cuda")
 def _forward_kernel(features, rois, output_size, spatial_scale, sampling_ratio, aligned):
     _check(features.shape, features.dtype, features.device, rois, output_size, sampling_ratio)
     if not features.is_contiguous():
@@ -214,28 +226,35 @@ def _forward_kernel(features, rois, output_size, spatial_scale, sampling_ratio, 
     return out
 
 
-class RoIAlignFunction(torch.autograd.Function):
-    """B3 under autograd: the forward launches B3; the backward launches
-    B3-bwd and gives the rois no gradient (the JAX VJP's zeros). It saves
-    only the rois and the features' shape and dtype."""
+@roialign_op.register_fake
+def _roialign_op_fake(features, rois, output_size, spatial_scale, sampling_ratio, aligned):
+    b, _, _, c = features.shape
+    return features.new_empty((b, rois.shape[1], output_size, output_size, c), dtype=torch.float32)
 
-    @staticmethod
-    def forward(ctx, features, rois, output_size, spatial_scale, sampling_ratio, aligned):
-        ctx.save_for_backward(rois)
-        ctx.geometry = (tuple(features.shape), features.dtype, output_size, spatial_scale,
-                        sampling_ratio, aligned)
-        return _forward_kernel(features, rois, output_size, spatial_scale, sampling_ratio, aligned)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        (rois,) = ctx.saved_tensors
-        shape, dtype, output_size, spatial_scale, sampling_ratio, aligned = ctx.geometry
-        d_features = None
-        if ctx.needs_input_grad[0]:
-            d_features = roialign_backward(grad.contiguous(), rois, shape, dtype, output_size,
-                                           spatial_scale, sampling_ratio, aligned)
-        return d_features, None, None, None, None, None
+def _roialign_op_setup(ctx, inputs, output):
+    features, rois, *geometry = inputs
+    # the CPU backward recomputes roialign_plain from the features; the
+    # card's (B3-bwd) needs only their shape and dtype
+    ctx.save_for_backward(rois, features if features.device.type == "cpu" else None)
+    ctx.geometry = (tuple(features.shape), features.dtype, *geometry)
+
+
+def _roialign_op_backward(ctx, grad):
+    rois, features = ctx.saved_tensors
+    shape, dtype, *geometry = ctx.geometry
+    if not ctx.needs_input_grad[0]:
+        return None, None, None, None, None, None
+    if features is not None:
+        with torch.enable_grad():
+            f = features.detach().requires_grad_()
+            (d_features,) = torch.autograd.grad(roialign_plain(f, rois, *geometry), f, grad)
+    else:
+        d_features = roialign_backward(grad.contiguous(), rois, shape, dtype, *geometry)
+    return d_features, None, None, None, None, None
+
+
+roialign_op.register_autograd(_roialign_op_backward, setup_context=_roialign_op_setup)
 
 
 def roialign(features, rois, output_size: int = 7, spatial_scale: float = 1.0,
@@ -243,14 +262,14 @@ def roialign(features, rois, output_size: int = 7, spatial_scale: float = 1.0,
     """features [B, H, W, C] (float32 or bfloat16) + rois [B, R, 4] float32
     pixel xyxy -> [B, R, output_size, output_size, C] float32.
 
-    On a CUDA tensor this launches B3 on the current stream (and adds one to
-    `roialign.launches`) through `RoIAlignFunction`, so that a gradient of
-    the features runs B3-bwd; on a CPU tensor it is `roialign_plain`."""
-    if features.device.type == "cpu":
-        return roialign_plain(features, rois, output_size, spatial_scale, sampling_ratio, aligned)
-    if features.device.type != "cuda":
+    Calls `roialign_op`: on a CUDA tensor it launches B3 on the current
+    stream (and adds one to `roialign.launches`), and a gradient of the
+    features runs B3-bwd; on a CPU tensor it is `roialign_plain`. The rois
+    get no gradient."""
+    if features.device.type not in ("cpu", "cuda"):
         raise ValueError(f"roialign runs on cuda or cpu tensors, got {features.device}")
-    return RoIAlignFunction.apply(features, rois, output_size, spatial_scale, sampling_ratio, aligned)
+    return roialign_op(features, rois, int(output_size), float(spatial_scale), int(sampling_ratio),
+                       bool(aligned))
 
 
 roialign.launches = 0

@@ -27,14 +27,16 @@ budgets.
 The kernels take their weights in their own layouts (`prepare_weights`),
 built once per (weight tensors, dtype) and cached (`kernel_weights`).
 
-`trunk` and `trunk_variant` launch the kernel on a CUDA tensor and use the
-plain PyTorch versions (`trunk_plain`, `trunk_variant_plain`) only for a
-tensor on the CPU. `trunk` is differentiable through `TrunkFunction`: the
-kernel computes the forward and saves only its inputs; the backward
-recomputes `trunk_plain` from them and differentiates it (cuDNN on the
-card), as pallas/trunk.py's custom VJP runs the backward through
-jax.vjp(xla_trunk). The JAX package has no Pallas backward for the trunk,
-so neither has the port. `trunk_variant` is a probe and takes no gradient.
+`trunk` calls the torch.library op `torch.ops.driving_dirty.trunk`
+(`trunk_op`), so that torch.export traces a model through it: on a CUDA
+tensor the op launches the kernel, on a CPU tensor it is the plain
+PyTorch version `trunk_plain`, and its fake gives the output's shape. The
+op is differentiable: it saves only its inputs, and its backward
+(`trunk_vjp`) recomputes `trunk_plain` from them and differentiates it
+(cuDNN on the card), as pallas/trunk.py's custom VJP runs
+the backward through jax.vjp(xla_trunk). The JAX package has no Pallas
+backward for the trunk, so neither has the port. `trunk_variant` is a
+probe, a plain ctypes call that takes no gradient.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ import weakref
 import torch
 import torch.nn.functional as F
 
-from driving_dirty_tpu_torch.kernels.build import load_library
+from driving_dirty_tpu_torch.kernels.build import OP_NAMESPACE, load_library
 
 C = 32  # trunk width, fixed by the architecture
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -241,30 +243,27 @@ def _launch(x, params, stages):
     return out
 
 
-class TrunkFunction(torch.autograd.Function):
-    """The trunk under autograd: TrunkFunction.apply(forward, x, w1, b1, w2,
-    b2, w3, b3). `forward` computes the output (`trunk` passes the kernel's
-    launch; a CPU test may pass `trunk_plain`); only the seven inputs are
-    saved. The backward recomputes `trunk_plain` from them under
-    enable_grad and differentiates it with torch.autograd.grad, for the
-    inputs that need a gradient. That recompute is also the training
-    step's remat of the encoder: c1 and c2 exist only inside the backward."""
-
-    @staticmethod
-    def forward(ctx, forward, x, w1, b1, w2, b2, w3, b3):
-        ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3)
-        return forward(x, w1, b1, w2, b2, w3, b3)
-
-    @staticmethod
-    def backward(ctx, grad):
-        needs = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
-            wanted = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad(trunk_plain(*inputs), wanted, grad))
-        return (None, *(next(grads) if need else None for need in needs))
+def trunk_vjp(saved, needs, grad):
+    """The trunk's backward: recompute `trunk_plain` from the seven saved
+    inputs under enable_grad and differentiate it with torch.autograd.grad,
+    for the inputs whose `needs` flag is set; None for the others. That
+    recompute is also the training step's remat of the encoder: c1 and c2
+    exist only inside the backward."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(trunk_plain(*inputs), wanted, grad))
+    return tuple(next(grads) if need else None for need in needs)
 
 
+@torch.library.custom_op(f"{OP_NAMESPACE}::trunk", mutates_args=(), device_types="cpu")
+def trunk_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+             b2: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """B1 as a torch.library op: the plain version on a CPU tensor."""
+    return trunk_plain(x, w1, b1, w2, b2, w3, b3)
+
+
+@trunk_op.register_kernel("cuda")
 def _trunk_kernel(x, w1, b1, w2, b2, w3, b3):
     out = _launch(x, (w1, b1, w2, b2, w3, b3), VARIANT_STAGES["full"])
     if out.numel():
@@ -272,17 +271,34 @@ def _trunk_kernel(x, w1, b1, w2, b2, w3, b3):
     return out
 
 
+@trunk_op.register_fake
+def _trunk_op_fake(x, w1, b1, w2, b2, w3, b3):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, *out_hw(h, w), C))
+
+
+def _trunk_op_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _trunk_op_backward(ctx, grad):
+    return trunk_vjp(ctx.saved_tensors, ctx.needs_input_grad, grad)
+
+
+trunk_op.register_autograd(_trunk_op_backward, setup_context=_trunk_op_setup)
+
+
 def trunk(x, w1, b1, w2, b2, w3, b3):
     """c1 -> c2 -> c3 trunk. [b, H, W, 3] -> [b, (H+1)//2, (W+1)//2, 32] in x's
     dtype (float32 or bfloat16); conv weights OIHW, biases [32].
 
-    On a CUDA tensor this launches the kernel on the current stream (and adds
-    one to `trunk.launches`), through `TrunkFunction` so that gradients flow
-    (the backward launches no kernel); on a CPU tensor it is `trunk_plain`,
-    under ordinary autograd."""
-    if x.device.type == "cpu":
-        return trunk_plain(x, w1, b1, w2, b2, w3, b3)
-    return TrunkFunction.apply(_trunk_kernel, x, w1, b1, w2, b2, w3, b3)
+    Calls `trunk_op`: on a CUDA tensor it launches the kernel on the current
+    stream (and adds one to `trunk.launches`), on a CPU tensor it is
+    `trunk_plain`; either way gradients flow through `trunk_vjp` (the
+    backward launches no kernel)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"trunk runs on cuda or cpu tensors, got {x.device}")
+    return trunk_op(x, w1, b1, w2, b2, w3, b3)
 
 
 trunk.launches = 0

@@ -31,20 +31,25 @@ The kernel takes its weights in its own layout (`prepare_int8_weights`:
 int8 B fragments, the f32 epilogue constants and the int path flags), built
 once per (weight tensors, scales) and cached (`kernel_int8_weights`).
 
-`trunk_int8` launches the kernel on a CUDA tensor (and adds one to
-`trunk_int8.launches`) and uses `trunk_int8_plain` only for a tensor on the
-CPU. On the card it takes bf16 input and static scales, or raises: there is
-no f32 instantiation (the models give it bf16 at precision 8) and no
-dynamic-scale kernel. Inference only: it has no backward.
+`trunk_int8` calls the torch.library op `torch.ops.driving_dirty.
+trunk_int8` (`trunk_int8_op`), so that torch.export traces a precision-8
+model through it (its static scales become constants of the program): on
+a CUDA tensor the op launches the kernel (and adds one to
+`trunk_int8.launches`), on a CPU tensor it is `trunk_int8_plain`. On the
+card it takes bf16 input and static scales, or raises: there is no f32
+instantiation (the models give it bf16 at precision 8) and no
+dynamic-scale kernel. Inference only: it has no backward. The stage
+variants (`trunk_int8_variant`) are a probe and stay plain ctypes calls.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
-from driving_dirty_tpu_torch.kernels.build import load_library
+from driving_dirty_tpu_torch.kernels.build import OP_NAMESPACE, load_library
 from driving_dirty_tpu_torch.kernels.trunk import C, cached_layout, check_inputs, out_hw
 from driving_dirty_tpu_torch.ops import quant
 from driving_dirty_tpu_torch.ops.quant import QMAX
@@ -205,21 +210,48 @@ def _launch(x, params, scales, stages):
     return out
 
 
+@torch.library.custom_op(f"{OP_NAMESPACE}::trunk_int8", mutates_args=(), device_types="cpu")
+def trunk_int8_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                  b2: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                  scales: Optional[list[float]]) -> torch.Tensor:
+    """B1-int8 as a torch.library op: the plain version on a CPU tensor
+    (scales None: the dynamic absmax)."""
+    return trunk_int8_plain(x, w1, b1, w2, b2, w3, b3, None if scales is None else tuple(scales))
+
+
+@trunk_int8_op.register_kernel("cuda")
+def _trunk_int8_op_cuda(x, w1, b1, w2, b2, w3, b3, scales):
+    out = _launch(x, (w1, b1, w2, b2, w3, b3), scales, INT8_VARIANT_STAGES["full"])
+    if out.numel():
+        trunk_int8.launches += 1
+    return out
+
+
+@trunk_int8_op.register_fake
+def _trunk_int8_op_fake(x, w1, b1, w2, b2, w3, b3, scales):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, *out_hw(h, w), C))
+
+
 def trunk_int8(x, w1, b1, w2, b2, w3, b3, scales):
     """Static-scale int8 c1 -> c2 -> c3 trunk: [b, H, W, 3] -> [b, (H+1)//2,
     (W+1)//2, 32] in x's dtype; conv weights OIHW, biases [32], `scales` the
     static (input, c1 out, c2 out) scales of ops/quant.py:calibrate_trunk.
 
-    On a CUDA tensor this launches the kernel on the current stream (and adds
-    one to `trunk_int8.launches`); it takes bfloat16 input and static scales
-    and raises otherwise, and raises if asked for a gradient. On a CPU tensor
-    it is `trunk_int8_plain` (scales=None: the dynamic absmax)."""
-    if x.device.type == "cpu":
-        return trunk_int8_plain(x, w1, b1, w2, b2, w3, b3, scales)
-    out = _launch(x, (w1, b1, w2, b2, w3, b3), scales, INT8_VARIANT_STAGES["full"])
-    if out.numel():
-        trunk_int8.launches += 1
-    return out
+    Calls `trunk_int8_op`: on a CUDA tensor it launches the kernel on the
+    current stream (and adds one to `trunk_int8.launches`); it takes
+    bfloat16 input and static scales and raises otherwise, and raises if
+    asked for a gradient. On a CPU tensor it is `trunk_int8_plain`
+    (scales=None: the dynamic absmax)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8 trunk runs on cuda or cpu tensors, got {x.device}")
+    if x.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2, w3, b3)):
+        # the op's kernel runs below autograd, where grad mode reads off
+        raise NotImplementedError("the int8 trunk is inference-only and has no backward; "
+                                  "call it under torch.no_grad()")
+    return trunk_int8_op(x, w1, b1, w2, b2, w3, b3,
+                         None if scales is None else [float(s) for s in scales])
 
 
 trunk_int8.launches = 0

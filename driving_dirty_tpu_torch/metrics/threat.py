@@ -4,8 +4,9 @@ reference's src/utils/helper.py:74-77 and :33-72).
 
 `ts_road_map` runs on the tensors' device. `ats_bounding_boxes` runs on the
 host: an axis-aligned prefilter over all pairs, then the exact convex IoU
-(metrics/polygon.py) of the pairs that pass, in Python. The JAX package's
-optional native C++ IoU loop is not ported yet.
+of the pairs that pass, in the native C++ loop (metrics/_native.py, built
+with g++ on first use) where it builds, else in Python (metrics/polygon.py,
+the same math).
 """
 from __future__ import annotations
 
@@ -26,15 +27,27 @@ def ts_road_map(road_map1, road_map2):
     return tp / (torch.sum(a) + torch.sum(b) - tp)
 
 
+def _native_iou():
+    """metrics/_native.py, or None where it cannot build."""
+    try:
+        from driving_dirty_tpu_torch.metrics import _native
+    except ImportError:
+        return None
+    return _native
+
+
 def _pairwise_iou_matrix(boxes1, boxes2):
     """[N1, N2] IoU of the pairs that pass the axis-aligned overlap prefilter
-    (helper.py:47-57), 0 elsewhere."""
+    (helper.py:47-57), 0 elsewhere; in the native loop where it builds."""
     b1 = np.asarray(boxes1, dtype=np.float64)  # [N1, 2, 4]
     b2 = np.asarray(boxes2, dtype=np.float64)  # [N2, 2, 4]
     max1, min1 = b1.max(axis=2), b1.min(axis=2)  # [N1, 2]
     max2, min2 = b2.max(axis=2), b2.min(axis=2)
     cond = ((max1[:, None, 0] > min2[None, :, 0]) & (min1[:, None, 0] < max2[None, :, 0])
             & (max1[:, None, 1] > min2[None, :, 1]) & (min1[:, None, 1] < max2[None, :, 1]))
+    nat = _native_iou()
+    if nat is not None:
+        return nat.masked_pair_iou(b1, b2, cond)
     iou = np.zeros((len(b1), len(b2)))
     for i, j in zip(*np.nonzero(cond)):
         iou[i, j] = box_iou(b1[i], b2[j])

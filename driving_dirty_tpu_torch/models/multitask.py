@@ -12,7 +12,7 @@ Training: `loss(batch, train=True, generator=...)` -> the roadmap BCE plus
 `box_loss_weight` times the box BCE, with `rm_loss` and `box_loss` as its
 metrics; the encoder's dropout draws from `generator`. c3 feeds both heads,
 so once the encoder trains, autograd adds the two gradients into the one
-trunk output of kernels/trunk.py:TrunkFunction. `freeze_mask` freezes the
+trunk output of the op of kernels/trunk.py:trunk. `freeze_mask` freezes the
 pretrained encoder before `unfreeze_epoch_no` (default 20; a 0 also reads
 as 20, as in the JAX package). The JAX package's `remat` hparam
 (jax.checkpoint over the encoder) has no separate counterpart: the trunk's

@@ -16,7 +16,7 @@ calibrates the int8 trunk on its first batch
 
 Training: `loss(batch, train=True, generator=...)` rasterizes the step's
 targets (B2) and runs the trunk (B1, differentiable through
-kernels/trunk.py:TrunkFunction once the encoder trains). The c3-only
+the op of kernels/trunk.py:trunk once the encoder trains). The c3-only
 backbone has no dropout, so `generator` draws nothing here. `freeze_mask`
 freezes the pretrained trunk before `unfreeze_epoch_no` (default 20; a 0
 also reads as 20, as `hp(...) or 20` does in the JAX package).

@@ -12,12 +12,18 @@ takes a batch (leading axes) at once; `match_anchors` keeps its
 single-image form (the tests' oracle). The samplers take their uniform
 noise as an argument (the callers draw it from the step's generator), and
 select with exact top-k where the JAX package may use lax.approx_max_k.
+
+`nms_fixed` runs as the torch.library op `torch.ops.driving_dirty.nms`
+(`nms_op`): its convergence loop reads a flag back to the host, which
+torch.export cannot trace, so an exported program calls the op and the
+loop keeps its readbacks (and its keep sets) inside it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from driving_dirty_tpu_torch.kernels.build import OP_NAMESPACE
 from driving_dirty_tpu_torch.kernels.roialign import roialign
 from driving_dirty_tpu_torch.ops.boxes import pairwise_iou
 
@@ -238,8 +244,9 @@ def sample_balanced(noise, labels, num_samples: int, positive_fraction: float):
     return idx, is_pos, take
 
 
-def nms_fixed(boxes, scores, iou_threshold: float, max_out: int,
-              max_iters: int = NMS_MAX_ITERS, fixed_depth: int = 0):
+@torch.library.custom_op(f"{OP_NAMESPACE}::nms", mutates_args=())
+def nms_op(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float, max_out: int,
+           max_iters: int, fixed_depth: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Greedy NMS over fixed-size candidate sets, batched over leading axes.
 
     boxes [..., K, 4], scores [..., K] (invalid = NEG_INF) ->
@@ -257,7 +264,10 @@ def nms_fixed(boxes, scores, iou_threshold: float, max_out: int,
     package's per-image loop gives.
     `fixed_depth` > 0 runs that many steps with no checks instead. A final
     step intersects the state with its own successor, so even under the
-    cap no two kept boxes overlap by more than the threshold."""
+    cap no two kept boxes overlap by more than the threshold.
+
+    A torch.library op (any device) with no gradient; `nms_fixed` calls
+    it."""
     lead, k = scores.shape[:-1], scores.shape[-1]
     boxes = boxes.reshape(-1, k, 4)
     s, order = torch.sort(scores.reshape(-1, k), dim=-1, descending=True, stable=True)
@@ -287,6 +297,21 @@ def nms_fixed(boxes, scores, iou_threshold: float, max_out: int,
     vals, kept_sorted = top_k(torch.where(keep, s, NEG_INF), max_out)
     keep_idx = order.gather(1, kept_sorted)
     return keep_idx.reshape(*lead, max_out), (vals > NEG_INF / 2).reshape(*lead, max_out)
+
+
+@nms_op.register_fake
+def _nms_op_fake(boxes, scores, iou_threshold, max_out, max_iters, fixed_depth):
+    shape = (*scores.shape[:-1], max_out)
+    return scores.new_empty(shape, dtype=torch.int64), scores.new_empty(shape, dtype=torch.bool)
+
+
+def nms_fixed(boxes, scores, iou_threshold: float, max_out: int,
+              max_iters: int = NMS_MAX_ITERS, fixed_depth: int = 0):
+    """Greedy NMS over fixed-size candidate sets, batched over leading axes:
+    boxes [..., K, 4], scores [..., K] (invalid = NEG_INF) -> (keep_idx
+    [..., max_out], keep_valid [..., max_out]), the survivors' indices in
+    score order (`nms_op`; its host checks count in `nms_fixed.checks`)."""
+    return nms_op(boxes, scores, float(iou_threshold), int(max_out), int(max_iters), int(fixed_depth))
 
 
 nms_fixed.checks = 0

@@ -47,6 +47,12 @@ which gets the CPU parity tests' bar for that batch, 2.9e-2
 weight): the batch statistics of 4 rows amplify c3's last-bit
 differences; the biases ahead of that BatchNorm, whose true gradient is 0,
 within 1e-6 of the global gradient norm; the targets equal.
+A .ddx artifact exported on the card (export.py; small widths, batch 2)
+and loaded back launches B1 once a request (B1-int8 instead at precision
+8, and B3 once for faster_rcnn_rm) and never a plain version, and gives
+`predict`'s outputs on the same float32 inputs: the same kernels and
+operations run, so masks agree on > 99.99% of pixels and detections'
+valid flags and labels are equal and their scores within 1e-5.
 """
 from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
 
@@ -180,7 +186,7 @@ def test_trunk_function_gradients_match_plain_on_gpu(shape, dtype):
                     generator=torch.Generator(device="cuda").manual_seed(1), device="cuda").to(x.dtype)
     launches = K.trunk.launches
     out = K.trunk(*a)
-    assert "TrunkFunction" in type(out.grad_fn).__name__
+    assert "driving_dirty_trunk" in type(out.grad_fn).__name__  # the op's backward: trunk_vjp
     out.backward(g)
     K.trunk_plain(*b).backward(g)
     torch.cuda.synchronize()
@@ -801,3 +807,72 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "driving_dirty_tpu", "flax", "optax"), (path, name)
+
+
+def _artifact(tmp_path, model, exporter, **kw):
+    from driving_dirty_tpu_torch import export as ddx
+
+    ckpt = tmp_path / f"{model.name}.ckpt"
+    ddx.save_task_ckpt(ckpt, model)
+    art = tmp_path / f"{model.name}.ddx"
+    meta = exporter(str(ckpt), str(art), batch_size=2, device="cuda", **kw)
+    assert meta["device"] == "cuda"
+    return str(ckpt), ddx.load(str(art))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", [32, 8])
+def test_roadmap_artifact_launches_the_trunk_and_matches_predict_on_gpu(tmp_path, monkeypatch, precision):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from driving_dirty_tpu_torch import export as ddx
+    from driving_dirty_tpu_torch.cli.run_test import load_roadmap_model
+    from driving_dirty_tpu_torch.models.roadmap import RoadMapBCEv2
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((2, 6, 256, 306, 3), generator=gen, device="cuda")
+    hp = dict(ae_hidden_dim=8, ae_latent_dim=8, pretrained_path=None, batch_size=2, precision=precision)
+    kw = {"calib_images": x.cpu().numpy()} if precision == 8 else {}
+    ckpt, served = _artifact(tmp_path, RoadMapBCEv2(hp, device="cuda", generator=gen), ddx.export_roadmap, **kw)
+    direct = load_roadmap_model(ckpt, precision, device="cuda").predict(x)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(K, "trunk_plain", refuse)
+    monkeypatch.setattr(K8, "trunk_int8_plain", refuse)
+    before = (K.trunk.launches, K8.trunk_int8.launches)
+    out = served(x)
+    torch.cuda.synchronize()
+    want = (1, 0) if precision == 32 else (0, 1)
+    assert (K.trunk.launches - before[0], K8.trunk_int8.launches - before[1]) == want
+    assert out.shape == (2, 800, 800)
+    assert (out == direct).float().mean().item() > 0.9999
+
+
+@pytest.mark.gpu
+def test_detection_artifact_launches_trunk_and_roialign_and_matches_predict_on_gpu(tmp_path, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from driving_dirty_tpu_torch import export as ddx
+    from driving_dirty_tpu_torch.models.faster_rcnn import FasterRCNNRoadMap
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    hp = dict(pretrained_path=None, batch_size=2, rpn_pre_nms_top_n=256, rpn_post_nms_top_n=64)
+    ckpt, served = _artifact(tmp_path, FasterRCNNRoadMap(hp, device="cuda", generator=gen), ddx.export_detection)
+    x = torch.rand((2, 6, 256, 306, 3), generator=gen, device="cuda")
+    road = (torch.rand((2, 800, 800), generator=gen, device="cuda") > 0.5).float()
+    direct = ddx.load_task_ckpt(ckpt, device="cuda").predict(x, road)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(K, "trunk_plain", refuse)
+    monkeypatch.setattr(RA, "roialign_plain", refuse)
+    before = (K.trunk.launches, RA.roialign.launches)
+    out = served(x, road)
+    torch.cuda.synchronize()
+    assert (K.trunk.launches - before[0], RA.roialign.launches - before[1]) == (1, 1)
+    assert torch.equal(out["valid"], direct["valid"]) and out["valid"].any()
+    assert torch.equal(out["labels"], direct["labels"])
+    assert (out["scores"] - direct["scores"]).abs().max().item() <= 1e-5

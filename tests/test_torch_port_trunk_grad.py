@@ -1,9 +1,11 @@
-"""The trunk under autograd (kernels/trunk.py:TrunkFunction) against the JAX
-package's trunk gradients, on the CPU.
+"""The trunk under autograd (kernels/trunk.py:trunk, the op
+`torch.ops.driving_dirty.trunk`) against the JAX package's trunk
+gradients, on the CPU.
 
-The Function runs here with `trunk_plain` as its forward (on the card it
-gets the B1 kernel's launch); its backward recomputes `trunk_plain` and
-differentiates it, as pallas/trunk.py's custom VJP runs jax.vjp(xla_trunk).
+On a CPU tensor the op's forward is `trunk_plain` (on the card it is the
+B1 kernel's launch); its backward (`trunk_vjp`) recomputes `trunk_plain`
+and differentiates it, as pallas/trunk.py's custom VJP runs
+jax.vjp(xla_trunk).
 The reference is jax.grad of pallas/trunk.py:xla_trunk for a seeded
 cotangent, with the same numpy weights (HWIO there, OIHW here).
 
@@ -12,8 +14,8 @@ gradient is a sum of up to 64 * 96 * 288 products, taken by XLA and by
 ATen in other orders: about sqrt(n) f32 ulps (measured at most 1.2e-6 of
 the largest value at 64 x 96); 1e-4 leaves room and still fails a missing term, a transposed
 layout or a wrong stride at once (errors of order 1). The plain forward
-and the ordinary autograd through it must equal the Function's bit for
-bit: the same operations in the same order.
+and the ordinary autograd through it must equal the op's bit for bit:
+the same operations in the same order.
 """
 from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
 
@@ -24,7 +26,8 @@ import pytest
 import torch
 
 from driving_dirty_tpu.pallas.trunk import xla_trunk
-from driving_dirty_tpu_torch.kernels.trunk import TrunkFunction, trunk, trunk_plain
+from driving_dirty_tpu_torch.kernels import trunk as K
+from driving_dirty_tpu_torch.kernels.trunk import trunk, trunk_plain
 
 REL_TOL = 1e-4
 NAMES = ("x", "w1", "b1", "w2", "b2", "w3", "b3")
@@ -56,7 +59,7 @@ def test_function_gradients_match_jax_grad_of_xla_trunk(shape):
 
     ref = jax.grad(loss, argnums=tuple(range(7)))(jnp.asarray(x), *map(jnp.asarray, params))
     args = _torch_args(x, params)
-    out = TrunkFunction.apply(trunk_plain, *args)
+    out = trunk(*args)
     out.backward(torch.from_numpy(g))
     for name, t, r in zip(NAMES, args, ref):
         got = t.grad.numpy()
@@ -67,22 +70,25 @@ def test_function_gradients_match_jax_grad_of_xla_trunk(shape):
         assert np.abs(got - r).max() <= REL_TOL * np.abs(r).max(), name
 
 
-def test_function_equals_ordinary_autograd_and_forwards_once():
-    """The forward is called once per apply and never by the backward (on
-    the card: B1 launches once a step); values and gradients equal plain
+def test_function_equals_ordinary_autograd_and_forwards_once(monkeypatch):
+    """The op's forward runs once a call, and its backward runs no forward
+    of its own, only the recompute of `trunk_plain` that it differentiates
+    (on the card: B1 launches once a step); values and gradients equal plain
     autograd through trunk_plain bit for bit, for the inputs that ask."""
     x, params, g = _inputs((2, 9, 14, 3), seed=1)
     calls = []
 
-    def forward(*args):
-        calls.append(1)
+    def counted(*args):
+        calls.append(torch.is_grad_enabled())  # the forward runs with grad off, the recompute with it on
         return trunk_plain(*args)
 
+    monkeypatch.setattr(K, "trunk_plain", counted)
     needs = (False, True, True, False, True, True, True)
     a = _torch_args(x, params, needs)
-    out = TrunkFunction.apply(forward, *a)
+    out = trunk(*a)
+    assert calls == [False]
     out.backward(torch.from_numpy(g))
-    assert len(calls) == 1
+    assert calls == [False, True]
     b = _torch_args(x, params, needs)
     ref = trunk_plain(*b)
     ref.backward(torch.from_numpy(g))
@@ -94,12 +100,16 @@ def test_function_equals_ordinary_autograd_and_forwards_once():
 
 
 def test_cpu_trunk_is_plain_with_ordinary_autograd():
+    """On a CPU tensor the op is `trunk_plain`, and its gradients for every
+    input are ordinary autograd's through it, bit for bit."""
     x, params, g = _inputs((1, 8, 10, 3), seed=2)
     a, b = _torch_args(x, params), _torch_args(x, params)
     out = trunk(*a)
-    assert out.grad_fn is not None and "TrunkFunction" not in type(out.grad_fn).__name__
+    assert "driving_dirty_trunk" in type(out.grad_fn).__name__  # the op's backward
     out.backward(torch.from_numpy(g))
-    TrunkFunction.apply(trunk_plain, *b).backward(torch.from_numpy(g))
+    ref = trunk_plain(*b)
+    ref.backward(torch.from_numpy(g))
+    assert torch.equal(out, ref)
     for name, s, t in zip(NAMES, a, b):
         assert torch.equal(s.grad, t.grad), name
 
@@ -107,5 +117,5 @@ def test_cpu_trunk_is_plain_with_ordinary_autograd():
 def test_function_under_no_grad_builds_no_graph():
     x, params, _ = _inputs((1, 6, 6, 3), seed=3)
     with torch.no_grad():
-        out = TrunkFunction.apply(trunk_plain, *_torch_args(x, params))
+        out = trunk(*_torch_args(x, params))
     assert out.grad_fn is None and not out.requires_grad
