@@ -222,9 +222,25 @@
    round trip on 127.0.0.1, port 0; swap_params from a second checkpoint
    (masks changed, equal to its predict's) and the refusal of a drifted
    state.
-12. Prints the card's name and power limit, one JSON line of kernel records
-   (with each kernel's launches a request from the artifacts of step 11),
-   and last the JSON line {"ok": true, "device": {...}}.
+12. Mesh phase (multi-device training): two ranks spawned on cuda:0
+   (parallel/launch.py), which they share over gloo, the one layout one
+   card allows: gloo's all_reduce, all_gather and broadcast of CUDA
+   tensors checked; the decoder's widest dropout draw for the global batch
+   and for a rank's half timed; BasicAE dp=2 (3 steps, dropout and the
+   six-to-one mask on), roadmap_bce frozen dp=1 x tp=2 (3 steps, its
+   shards' shapes checked) and multitask dp=2 (2 steps, B2 in each rank's
+   loss), full width, each against the one-process run of the same global
+   batches from the same seed within MESH_LOSS_TOL, one gradient sum a
+   step on every data rank, every rank's final weights equal and rank 0's
+   within MESH_STATE_TOL of one process's, B1 (and B2) once a step on
+   every rank; ms a step beside one process's, the gradient all-reduce's
+   bytes and ms a step, peak memory per rank, the backend; then
+   cli.roadmap --gpus 2 --model_parallel 2 --device cuda:0 stopped at step
+   2 and resumed in one process, within RESUME_TOL of the uninterrupted
+   2-rank run. Ranks sharing a card give no scaling figure.
+13. Prints the card's name and power limit, one JSON line of kernel records
+   (with each kernel's launches a request from the artifacts of step 11,
+   and per rank in phase 12), and last the JSON line {"ok": true, "device": {...}}.
 
 TF32 is off for cuDNN and cuBLAS in every phase (printed at each).
 
@@ -296,6 +312,7 @@ from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
 from driving_dirty_tpu_torch.scripts import probe_trunk_int8_variants as int8_probe
 from driving_dirty_tpu_torch.scripts.probe_trunk_variants import device_line, probe_inputs, run_probe
 from driving_dirty_tpu_torch.data.pipeline import tree_map
+from driving_dirty_tpu_torch.parallel import launch
 from driving_dirty_tpu_torch.train import trainer as trainer_module
 from driving_dirty_tpu_torch.train.optim import Adam
 
@@ -1783,14 +1800,16 @@ def train_run(model, init, batches, steps: int, label: str, smi: str, plain: boo
     return out
 
 
-def hold_trajectory(label: str, got: list, ref: list) -> list:
+def hold_trajectory(label: str, got: list, ref: list, ref_name: str = "the plain kernels'",
+                    tols: tuple = LOSS_TOL) -> list:
+    """Relative loss errors, the first step's within tols[0], later ones' within tols[1]."""
     errs = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
     for step, err in enumerate(errs):
-        tol = LOSS_TOL[0] if step == 0 else LOSS_TOL[1]
+        tol = tols[0] if step == 0 else tols[1]
         if not err <= tol:
-            raise RuntimeError(f"{label}: step {step} loss {got[step]} vs plain {ref[step]} "
+            raise RuntimeError(f"{label}: step {step} loss {got[step]} vs {ref_name} {ref[step]} "
                                f"(relative {err} > {tol})")
-    print(f"{label}: loss trajectory within {LOSS_TOL} of the plain kernels' (relative {errs})", flush=True)
+    print(f"{label}: loss trajectory within {tols} of {ref_name} (relative {errs})", flush=True)
     return errs
 
 
@@ -3067,6 +3086,237 @@ def deploy_phase(tmp: Path, smi: str) -> dict:
     return out
 
 
+# Mesh phase (12): ranks spawned by parallel/launch.py on cuda:0, which
+# they share over gloo (the one card allows no other layout), at the full
+# width of AE_HPARAMS / HPARAMS, each against the one-process run of the
+# same global batches from the same seed: BasicAE dp=2 (dropout and the
+# six-to-one mask on: the global draws), roadmap_bce with its encoder
+# frozen at dp=1 x tp=2 (the head's fc1 column-parallel, the encoder's
+# fc1.fc row-parallel), multitask dp=2 (B2 in each rank's loss); validation
+# off (limit_val_batches 0), so B1 (and B2) launch once a step. Every data
+# rank sums the gradients once a step (none without a second data rank),
+# and every rank ends with rank 0's weights, bit for bit (each takes the
+# same summed gradient). Then cli.roadmap --gpus 2 --model_parallel 2
+# --device cuda:0, stopped by --max_steps and resumed in one process,
+# against the uninterrupted 2-rank run within RESUME_TOL. Two ranks on one
+# card give no scaling figure.
+MESH_RANKS = 2
+MESH_RUNS = (("basic_ae", 3, 1), ("roadmap_bce", 3, 2), ("multitask", 2, 1))  # (task, steps, model axis)
+MESH_SHARDS = {"roadmap_bce": {"encoder.fc1.fc.weight": [128, 470016], "fc1.weight": [320000, 64],
+                               "fc1.bias": [320000]}}
+MESH_CLI_STEPS, MESH_CLI_STOP = 4, 2
+# Losses against one process's, relative, at every step: the same math on
+# the same global batch, only the sums split over the ranks (PR 13's runs
+# measured at most 1.2e-7 at the first step and 8.2e-6 after). Bars of 1e-4
+# leave 12x room over the largest; LOSS_TOL's 5e-2 for later steps (set for
+# another kernel's run) would pass ranks that each stepped on their own
+# half-batch gradient.
+MESH_LOSS_TOL = (1e-4, 1e-4)
+# Rank 0's final weights against one process's: |w_rank - w_one| over
+# |w_one - w_init|, all parameters as one vector, that is the error of the
+# update the fit made. Phase 12 measured 1.3e-5 for roadmap_bce and 3.1e-6
+# for multitask (encoders frozen, the heads' gradients well conditioned;
+# PR 13, NVIDIA H100 80GB HBM3, 700.00 W): bars of 1e-4. BasicAE measured
+# 0.248: its first Adam steps move by +-lr the weights whose gradient is
+# float noise, and the sum order picks the sign; its bar is 0.5, and what holds
+# its ranks to the global gradient is the count of sums and the ranks'
+# equal weights, with the losses.
+MESH_STATE_TOL = {"basic_ae": 0.5, "roadmap_bce": 1e-4, "multitask": 1e-4}
+
+
+def gloo_cuda_probe() -> dict:
+    """A rank's all_reduce, all_gather and broadcast of CUDA tensors over
+    the world's gloo group."""
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4,), float(r + 1), device="cuda")
+    dist.all_reduce(x)
+    parts = [torch.empty(4, device="cuda") for _ in range(n)]
+    dist.all_gather(parts, torch.full((4,), float(r), device="cuda"))
+    b = torch.full((4,), float(r + 7), device="cuda")
+    dist.broadcast(b, src=0)
+    return {"all_reduce": x.tolist(), "all_gather": [p.tolist() for p in parts], "broadcast": b.tolist(),
+            "device": str(x.device)}
+
+
+def mesh_rank(specs: list) -> list:
+    """A spawned rank: TF32 off as in every phase, then each spec's fit."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return [launch.fit_worker(spec) for spec in specs]
+
+
+def mesh_specs(tmp: Path) -> list:
+    """The fits of MESH_RUNS on seeded batches of BATCH scenes: the training
+    phase's views (with random road maps), and box_scenes for multitask."""
+    rng = np.random.RandomState(SEED + 6)
+    images = request_images(rng, 2)
+    roads = [(rng.rand(BATCH, 800, 800) > 0.5).astype(np.float32) for _ in images]
+    boxes = [box_scenes(SEED + 1 + i, BATCH, MAX_BB) for i in range(2)]
+    labeled = [{"images": x, "road": r, "boxes": b, "box_valid": v} for x, r, (b, v) in zip(images, roads, boxes)]
+    tasks = {"basic_ae": (BasicAE, AE_HPARAMS, [{"images": x} for x in images]),
+             "roadmap_bce": (RoadMapBCEv2, dict(HPARAMS, unfreeze_epoch_no=1),
+                             [{k: b[k] for k in ("images", "road")} for b in labeled]),
+             "multitask": (MultiTask, BOX_HPARAMS, labeled)}
+    specs = []
+    for name, steps, model in MESH_RUNS:
+        cls, hparams, batches = tasks[name]
+        specs.append({"task": cls, "hparams": dict(hparams, learning_rate=LR), "seed": SEED + 12,
+                      "batches": [batches[i % len(batches)] for i in range(steps)], "model_parallel": model,
+                      "time_reduce": True, "device": "cuda", "state": True,
+                      "trainer": dict(max_epochs=1, limit_val_batches=0, log_every_n_steps=1,
+                                      enable_checkpointing=False, enable_progress_bar=False,
+                                      default_root_dir=str(tmp / "mesh" / name))})
+    return specs
+
+
+def update_error(spec: dict, state: dict, one: dict) -> float:
+    """|state - one| / |one - init| over every parameter of the task as one
+    vector, init the weights fit_worker builds the task with."""
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    init = dict(spec["task"](spec["hparams"], device="cuda", generator=gen).named_parameters())
+    num = den = 0.0
+    for k, w0 in init.items():
+        w, w1 = state[k].double(), one[k].double()
+        num += float((w - w1).square().sum())
+        den += float((w1 - w0.detach().cpu().double()).square().sum())
+    return (num / den) ** 0.5
+
+
+def mesh_losses(root: str, task: str) -> tuple[list, list]:
+    recs = metrics_records(Path(root), task)
+    return ([r["train_loss"] for r in recs if "train_loss" in r], [r["step_ms"] for r in recs if "step_ms" in r])
+
+
+def mesh_phase(tmp: Path, smi: str, ae_ckpt: Path) -> dict:
+    """Phase 12 (see MESH_RANKS): gloo's collectives on CUDA tensors, the
+    three fits on MESH_RANKS ranks of cuda:0 against one process, and the
+    2-rank cli.roadmap stop / one-process resume."""
+    tf32_line("mesh")
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    probe = launch.spawn(gloo_cuda_probe, MESH_RANKS, device="cuda:0")
+    n = MESH_RANKS
+    for r, p in enumerate(probe):
+        want = {"all_reduce": [n * (n + 1) / 2] * 4, "all_gather": [[float(i)] * 4 for i in range(n)],
+                "broadcast": [7.0] * 4, "device": "cuda:0"}
+        expect(f"mesh: gloo collectives of CUDA tensors on rank {r}", p, want)
+    print(f"mesh: gloo takes CUDA tensors for all_reduce, all_gather and broadcast ({n} ranks on cuda:0), "
+          f"so parallel/collectives.py stages nothing through the host itself", flush=True)
+    out["gloo_cuda"] = probe
+
+    # the global dropout draw: each dp=2 rank draws the decoder's widest
+    # mask for the global batch's 8 rows, as one process does, and keeps 4
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    width = 64 * 128 * 153  # the decoder's fc2 outputs at 256 x 306 views
+    draw = {rows: cuda_ms(lambda: torch.rand((rows, width), device="cuda", generator=g))
+            for rows in (BATCH, BATCH // 2)}
+    out["dropout_draw_ms"] = {"global_8_rows": draw[BATCH], "local_4_rows": draw[BATCH // 2]}
+    print(f"mesh: the decoder's widest dropout draw ({smi}): {draw[BATCH]:.4f} ms for the global batch's 8 "
+          f"rows (what each dp=2 rank draws), {draw[BATCH // 2]:.4f} ms for its own 4", flush=True)
+
+    specs = mesh_specs(tmp)
+    t0 = time.perf_counter()
+    ranks = launch.spawn(mesh_rank, MESH_RANKS, (specs,), device="cuda:0")
+    out["spawned_s"] = time.perf_counter() - t0
+    for i, (spec, (name, steps, model)) in enumerate(zip(specs, MESH_RUNS)):
+        root = spec["trainer"]["default_root_dir"]
+        losses, step_ms = mesh_losses(root, spec["task"].name)
+        one = launch.fit_worker(dict(spec, model_parallel=1,
+                                     trainer=dict(spec["trainer"], default_root_dir=root + "_one")))
+        one_losses, one_ms = mesh_losses(root + "_one", spec["task"].name)
+        label = f"mesh {name} dp={MESH_RANKS // model} x tp={model}"
+        expect(f"{label} steps", len(losses), steps)
+        err = hold_trajectory(label, losses, one_losses, "one process's", MESH_LOSS_TOL)
+        per_rank = [rank[i] for rank in ranks]
+        for r, got in enumerate(per_rank):
+            expect(f"{label} rank {r} gradient sums", got["grad_reduce"]["calls"], steps if model == 1 else 0)
+            if r:
+                expect(f"{label} rank {r} final weights equal to rank 0's",
+                       [k for k, v in got.pop("state").items() if not torch.equal(v, per_rank[0]["state"][k])], [])
+        state_err = update_error(spec, per_rank[0].pop("state"), one.pop("state"))
+        print(f"{label}: rank 0's final weights against one process's, |w - w_one| / |w_one - w_init| "
+              f"{state_err:.3e} (tolerance {MESH_STATE_TOL[name]}); every rank's equal to rank 0's", flush=True)
+        if not state_err <= MESH_STATE_TOL[name]:
+            raise RuntimeError(f"{label}: final weights {state_err} from one process's > {MESH_STATE_TOL[name]}")
+        want = (steps, steps if name == "multitask" else 0)  # (B1, B2) launches
+        for r, got in enumerate(per_rank + [one]):
+            expect(f"{label} {'one-process' if r == len(per_rank) else f'rank {r}'} launches",
+                   (got["launches"]["trunk"], got["launches"]["raster"]), want)
+        if name in MESH_SHARDS:
+            for r, got in enumerate(per_rank):
+                expect(f"{label} rank {r} shard shapes", got["shard_shapes"], MESH_SHARDS[name])
+        red = per_rank[0]["grad_reduce"]
+        rec = {"losses": losses, "one_process_losses": one_losses, "loss_rel_err": err,
+               "state_update_rel_err": state_err,
+               "step_ms": step_ms, "one_process_step_ms": one_ms,
+               "median_step_ms": statistics.median(step_ms[1:]),
+               "one_process_median_step_ms": statistics.median(one_ms[1:]),
+               "grad_reduce_calls": red["calls"],
+               "grad_reduce_bytes_per_step": red["bytes"] / max(red["calls"], 1), "grad_reduce_ms": red["ms"],
+               "grad_reduce_median_ms": statistics.median(red["ms"][1:]) if len(red["ms"]) > 1 else 0.0,
+               "peak_memory_gb": [got["peak_memory_gb"] for got in per_rank],
+               "one_process_peak_memory_gb": one["peak_memory_gb"],
+               "launches": [got["launches"] for got in per_rank], "shard_shapes": per_rank[0]["shard_shapes"],
+               "backend": per_rank[0]["backend"]}
+        print(f"{label} ({smi}; {MESH_RANKS} ranks share one card over {rec['backend']}: no scaling figure): "
+              f"median ms a step {rec['median_step_ms']:.1f} (steps after the first) against "
+              f"{rec['one_process_median_step_ms']:.1f} in one process; gradient all-reduce "
+              f"{rec['grad_reduce_bytes_per_step'] / 1e6:.1f} MB a step, median {rec['grad_reduce_median_ms']:.1f} "
+              f"ms after the first (each: {', '.join(f'{t:.1f}' for t in red['ms'])}); peak memory per rank "
+              f"{', '.join(f'{g:.2f}' for g in rec['peak_memory_gb'])} GB (one process "
+              f"{rec['one_process_peak_memory_gb']:.2f} GB); launches per rank {rec['launches']}"
+              + (f"; shards a rank {rec['shard_shapes']}" if rec["shard_shapes"] else ""), flush=True)
+        out[name] = rec
+        torch.cuda.empty_cache()
+    out["cli"] = mesh_cli(tmp, smi, ae_ckpt)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"mesh phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def mesh_cli(tmp: Path, smi: str, ae_ckpt: Path) -> dict:
+    """cli.roadmap --gpus 2 --model_parallel 2 --device cuda:0 (the encoder
+    frozen): uninterrupted, and stopped at MESH_CLI_STOP then resumed in one
+    process under deterministic algorithms."""
+    data = tmp / "cli_data"
+    if not data.exists():
+        generate(str(data), scenes=CLI_SCENES, samples=CLI_SAMPLES, labeled_scenes=CLI_SCENES, seed=SEED)
+    argv = ["--link", str(data), "--samples_per_scene", str(CLI_SAMPLES), "--batch_size", str(BATCH),
+            "--max_epochs", "1", "--limit_train_batches", str(MESH_CLI_STEPS), "--limit_val_batches", "1",
+            "--log_every_n_steps", "1", "--output_img_freq", "0", "--seed", str(SEED), "--variant", "bce_v2",
+            "--num_labeled_scenes", str(CLI_SCENES), "--pretrained_path", str(ae_ckpt),
+            "--unfreeze_epoch_no", "1"]
+    ranks = ["--gpus", str(MESH_RANKS), "--model_parallel", str(MESH_RANKS), "--device", "cuda:0"]
+    t0 = time.perf_counter()
+    ref = cli_roadmap.main(argv + ranks + ["--default_root_dir", str(tmp / "mesh_cli")])
+    expect("mesh cli.roadmap stop", ref.stop_reason, None)
+    ref_losses = {r["step"]: r["train_loss"] for r in metrics_records(tmp / "mesh_cli", "roadmap_bce")
+                  if "train_loss" in r}
+    expect("mesh cli.roadmap steps", sorted(ref_losses), list(range(MESH_CLI_STEPS)))
+    root = tmp / "mesh_cli_resume"
+    stopped = cli_roadmap.main(argv + ranks + ["--default_root_dir", str(root), "--max_steps", str(MESH_CLI_STOP)])
+    expect("mesh cli.roadmap --max_steps stop", stopped.stop_reason, f"max_steps={MESH_CLI_STOP} reached")
+    with deterministic_algorithms():
+        _, resumed = cli_run("mesh cli.roadmap resumed in one process", cli_roadmap.main,
+                             argv + ["--default_root_dir", str(root), "--device", "cuda",
+                                     "--resume_from_checkpoint", stopped.last_ckpt_path], smi)
+    expect("mesh cli.roadmap resumed B1 launches", resumed["trunk_launches"], MESH_CLI_STEPS - MESH_CLI_STOP + 1)
+    losses = {r["step"]: r["train_loss"] for r in metrics_records(root, "roadmap_bce") if "train_loss" in r}
+    expect("mesh cli.roadmap stopped + resumed steps", sorted(losses), list(range(MESH_CLI_STEPS)))
+    gaps = {k: abs(losses[k] - ref_losses[k]) / abs(ref_losses[k]) for k in losses}
+    after = max(gaps[k] for k in range(MESH_CLI_STOP, MESH_CLI_STEPS))
+    print(f"mesh cli.roadmap ({smi}): 2 ranks (dp=1 x tp=2) stopped at step {MESH_CLI_STOP}, resumed in one "
+          f"process: steps {MESH_CLI_STOP}..{MESH_CLI_STEPS - 1} within {after:.3e} of the uninterrupted 2-rank "
+          f"run (tolerance {RESUME_TOL}); before the stop {max(gaps[k] for k in range(MESH_CLI_STOP)):.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not after <= RESUME_TOL:
+        raise RuntimeError(f"mesh cli.roadmap: resumed losses {gaps} exceed {RESUME_TOL}")
+    return {"rel_gaps": gaps, "max_rel_gap_after_resume": after, "resumed": resumed,
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -3083,11 +3333,11 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.BUILD_LOG.items():
         print(f"ptxas [{name}]:\n{log.strip()}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = kernel_phase(gen)
     int8_recs = int8_phase(gen)
     int8_variant_recs = int8_variant_phase()
@@ -3114,6 +3364,7 @@ def main(argv=None) -> int:
         trainer = trainer_phase(Path(tmp), smi, training)
         decode = decode_phase(Path(tmp), smi, ckpt, training["ae_ckpt"])
         deploy = deploy_phase(Path(tmp), smi)
+        mesh = mesh_phase(Path(tmp), smi, training["ae_ckpt"])
 
     box_names = [cls.name for cls in BOX_TRAIN_TASKS]
     box_clis = ("spatial_rm", "multitask", "bb_mlp")
@@ -3126,6 +3377,7 @@ def main(argv=None) -> int:
     raster_rec["launches"] = boxes["multitask_32"]["launches"]["raster"]
     raster_rec["training_launches"] = {k: box_training[k]["launches"]["raster"] for k in box_names}
     raster_rec["cli_launches"] = {k: trainer[k]["raster_launches"] for k in box_clis}
+    raster_rec["mesh_launches_per_rank"] = {"multitask": [r["raster"] for r in mesh["multitask"]["launches"]]}
     records.append(raster_rec)
     det_names = [cls.name for cls in DET_TRAIN_TASKS]
     det_clis = ("faster_rcnn_rm", "faster_rcnn")
@@ -3169,6 +3421,8 @@ def main(argv=None) -> int:
     f32_path["cli_launches"] = {k: trainer[k]["trunk_launches"]
                                 for k in ("basic_ae", "roadmap_bce", "run_test", *box_clis)}
     f32_path["training_launches"] = {k: box_training[k]["launches"]["trunk"] for k in box_names}
+    f32_path["mesh_launches_per_rank"] = {name: [r["trunk"] for r in mesh[name]["launches"]]
+                                          for name, _, _ in MESH_RUNS}
     bf16_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "bfloat16")
     bf16_path["cli_launches"] = {k: trainer[k]["trunk_launches"]
                                  for k in ("roadmap_bce_16", "roadmap_bce_8", "multitask_16")}
@@ -3181,7 +3435,8 @@ def main(argv=None) -> int:
     bf16_det["cli_launches"] = {"faster_rcnn_rm_16": trainer["faster_rcnn_rm_16"]["trunk_launches"]}
     print(json.dumps({"serving": served, "box_family": boxes, "detection": detection,
                       "precision8": precision8, "training": training, "box_training": box_training,
-                      "det_training": det_training, "trainer": trainer, "decode": decode, "deploy": deploy},
+                      "det_training": det_training, "trainer": trainer, "decode": decode, "deploy": deploy,
+                      "mesh": mesh},
                      default=str))
     print(smi)
     print(json.dumps({"kernels": records}))

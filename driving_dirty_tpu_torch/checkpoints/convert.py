@@ -23,6 +23,12 @@ other 4-d weight is a conv. `load_jax_weights` does this for a model.
 
 This is the inverse of the JAX package's import of the reference's torch
 checkpoints, restricted to the layer kinds this package has so far.
+
+Under a 'model' mesh axis (parallel/mesh.py) `shard_params` cuts a whole
+state_dict to this rank's blocks and `gather_params` gathers the blocks
+whole again, by the {name: sharding} of parallel/mesh.py:param_shardings,
+so a JAX checkpoint (`from_jax`) loads into a sharded model and a sharded
+model saves the one-process file (`to_jax`).
 """
 from __future__ import annotations
 
@@ -196,3 +202,20 @@ def load_jax_weights(model, params, state=None, *, what="checkpoint"):
     if bad or unexpected:
         raise KeyError(f"{what}: missing {bad}, unexpected {unexpected}")
     return model
+
+
+def shard_params(state_dict, mesh, specs) -> dict:
+    """This rank's blocks of a whole state_dict under `specs` ({name: None
+    or (dim, "model")}; names it lacks stay whole)."""
+    from driving_dirty_tpu_torch.parallel.mesh import local_shard
+
+    return {k: local_shard(mesh, v, specs.get(k)) for k, v in state_dict.items()}
+
+
+def gather_params(state_dict, mesh, specs) -> dict:
+    """The inverse of `shard_params`: every sharded entry gathered whole
+    over 'model' (a collective: every rank of the 'model' group calls it,
+    in the same order)."""
+    from driving_dirty_tpu_torch.parallel.collectives import gather_shard
+
+    return {k: gather_shard(mesh, v, specs[k]) if specs.get(k) else v for k, v in state_dict.items()}

@@ -275,10 +275,13 @@ def opt_state_leaves(opt, layouts) -> list:
     return leaves
 
 
-def restore_opt_state(opt, layouts, leaves) -> None:
+def restore_opt_state(opt, layouts, leaves, shard=None) -> None:
     """Load a JAX-trainer leaf list (or one `opt_state_leaves` wrote) into
     `opt`. A leaf count that does not fit the optimizer's configuration
-    raises, as the JAX trainer's restore does."""
+    raises, as the JAX trainer's restore does. `shard` ({name: whole
+    tensor} -> this rank's blocks) cuts the moments for an optimizer over a
+    'model'-sharded model."""
+    shard = shard or (lambda tensors: tensors)
     n = len(layouts)
     n_hyper = 1 if opt.clip else 5
     expect = 2 + n_hyper + 2 * n + (2 + n if opt.every_k > 1 else 0)
@@ -288,7 +291,7 @@ def restore_opt_state(opt, layouts, leaves) -> None:
     leaves = list(leaves)
     if opt.every_k > 1:
         opt.mini_step, opt.gradient_step = int(leaves[0]), int(leaves[1])
-        opt.load_moments(acc=param_tensors(layouts, leaves[-n:]))
+        opt.load_moments(acc=shard(param_tensors(layouts, leaves[-n:])))
         leaves = leaves[2:-n]
     hyper = [float(v) for v in leaves[1:1 + n_hyper]]
     if not opt.clip:
@@ -297,4 +300,4 @@ def restore_opt_state(opt, layouts, leaves) -> None:
     opt.count = int(leaves[1 + n_hyper])
     mu = leaves[2 + n_hyper:2 + n_hyper + n]
     nu = leaves[2 + n_hyper + n:]
-    opt.load_moments(mu=param_tensors(layouts, mu), nu=param_tensors(layouts, nu))
+    opt.load_moments(mu=shard(param_tensors(layouts, mu)), nu=shard(param_tensors(layouts, nu)))

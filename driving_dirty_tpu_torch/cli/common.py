@@ -4,12 +4,23 @@ of the reference's Lightning 0.7.5 scripts and the per-model runner.
 Every flag of the JAX package's parser is accepted, with these meanings
 here:
 
-  --gpus N        N CUDA devices. None or 1 trains on cuda:0; more raises
-                  NotImplementedError until multi-device training is ported
-                  (ROADMAP A.12), as do --num_nodes > 1 and
-                  --model_parallel > 1.
+  --gpus N        N ranks on this node (one process each). None or 1 trains
+                  in this process; more spawns N ranks
+                  (parallel/launch.py), each running this entry point with
+                  its rank, and returns rank 0's FitResult without its
+                  task. Under a launcher (torchrun: WORLD_SIZE, RANK,
+                  LOCAL_RANK) the process joins the launcher's world.
+  --num_nodes N   N nodes, found through DD_COORDINATOR_ADDRESS,
+                  DD_NUM_PROCESSES and DD_PROCESS_ID as the JAX package
+                  finds them (parallel/mesh.py:node_rendezvous); each node
+                  spawns its --gpus ranks.
+  --model_parallel M   the 'model' axis of the (data, model) mesh over the
+                  world's ranks: the task's sharding rules cut its large
+                  Linear layers over M ranks (train/trainer.py).
   --device        where to train: cuda (the default) or cpu. There is no
-                  fallback: without a card, cuda raises.
+                  fallback: without a card, cuda raises. Ranks of cuda take
+                  cuda:LOCAL_RANK and NCCL (the card must exist); cuda:K
+                  puts every rank on card K, over gloo, as asked.
   --remat         accepted; the port's trunk always recomputes in its
                   backward (kernels/trunk.py:trunk_vjp).
   --distributed_backend   accepted and ignored, as in the JAX package.
@@ -24,12 +35,17 @@ have no counterpart here.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import random
+import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from driving_dirty_tpu_torch.train.trainer import MULTI_DEVICE, Trainer
+from driving_dirty_tpu_torch.parallel import launch
+from driving_dirty_tpu_torch.parallel import mesh as mesh_lib
+from driving_dirty_tpu_torch.train.trainer import Trainer
 
 REFERENCE_SEED = 20200505  # every reference entry point seeds with this
 
@@ -40,10 +56,11 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
     g.add_argument("--max_steps", type=int, default=None,
                    help="stop (with a resumable checkpoint) after N optimizer steps")
     g.add_argument("--gpus", type=int, default=None,
-                   help="number of CUDA devices (1; more is not ported yet)")
+                   help="ranks on this node, one process each (more than 1 spawns them)")
     g.add_argument("--num_nodes", type=int, default=1)
     g.add_argument("--model_parallel", type=int, default=1,
-                   help="size of the 'model' mesh axis (not ported yet; 1)")
+                   help="size of the 'model' mesh axis (tensor parallelism of the task's "
+                        "sharding rules)")
     g.add_argument("--precision", type=int, default=32, choices=[8, 16, 32],
                    help="16 -> bfloat16 compute where supported; 8 -> bfloat16 training "
                         "and the int8 trunk at calibrated inference")
@@ -83,12 +100,11 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
 
 
 def trainer_from_args(args) -> Trainer:
-    gpus = getattr(args, "gpus", None)
-    if (gpus is not None and gpus > 1) or getattr(args, "num_nodes", 1) > 1 \
-            or getattr(args, "model_parallel", 1) > 1:
-        raise NotImplementedError(f"--gpus {gpus}, --num_nodes {getattr(args, 'num_nodes', 1)}, "
-                                  f"--model_parallel {getattr(args, 'model_parallel', 1)}: {MULTI_DEVICE}")
+    """A Trainer over the world this process joined (a mesh of its ranks and
+    --model_parallel), or over one device."""
     return Trainer(
+        num_devices=dist.get_world_size() if dist.is_initialized() else None,
+        model_parallel=getattr(args, "model_parallel", 1),
         max_epochs=args.max_epochs,
         default_root_dir=args.default_root_dir,
         limit_train_batches=args.limit_train_batches,
@@ -107,14 +123,29 @@ def trainer_from_args(args) -> Trainer:
     )
 
 
+def _rank_run(task_cls, argv, description):
+    """One spawned rank of `run_task` -> its FitResult without the task."""
+    return dataclasses.replace(run_task(task_cls, argv, description), task=None)
+
+
 def run_task(task_cls, argv=None, description=None):
     """A per-model entry point: parser = trainer flags + the model's flags
     -> seed random and numpy, build the task on the device from a generator
-    seeded with --seed, fit."""
+    seeded with --seed (alike on every rank), fit. With --gpus > 1 or
+    --num_nodes > 1 and no launcher, this process spawns the node's ranks,
+    which run this function, and returns rank 0's FitResult (task None)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = argparse.ArgumentParser(description=description or task_cls.__name__)
     parser = add_trainer_args(parser)
     parser = task_cls.add_model_specific_args(parser)
     args = parser.parse_args(argv)
+    gpus = args.gpus or 1
+    if not dist.is_initialized() and not mesh_lib.launched() and (gpus > 1 or args.num_nodes > 1):
+        nodes = mesh_lib.node_rendezvous(args.num_nodes)
+        init, world, first = (None, gpus, 0) if nodes is None else (nodes[0], nodes[1] * gpus, nodes[2] * gpus)
+        return launch.spawn(_rank_run, gpus, (task_cls, argv, description), device=args.device,
+                            init_method=init, world=world, first_rank=first)[0]
+    mesh_lib.initialize_distributed(args.num_nodes, device=args.device)  # a launcher's world
     random.seed(args.seed)
     np.random.seed(args.seed)
     trainer = trainer_from_args(args)

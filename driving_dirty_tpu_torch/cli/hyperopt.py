@@ -7,7 +7,7 @@ tunable=True) does. On a parser with `opt_list` / `tune` methods (a
 test-tube-style HyperOptArgumentParser) the dimension is recorded; on a
 plain argparse parser, which every CLI of this package uses, `opt_list` is
 `add_argument` and `tune` does nothing. Trial enumeration, the
-HyperOptArgumentParser itself and the submit fan-out wait for ROADMAP A.12.
+HyperOptArgumentParser itself and the submit fan-out wait for ROADMAP A.12d.
 """
 from __future__ import annotations
 

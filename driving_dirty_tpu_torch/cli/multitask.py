@@ -6,8 +6,9 @@ pretrained encoder (driving_dirty_tpu/cli/multitask.py):
 
 One encoder pass a step (kernel B1) feeds both heads; kernel B2 rasterizes
 the box targets. `export.load_task_ckpt` loads the checkpoint for
-`predict`. More than one card (--gpus 8 --model_parallel 2 in the JAX
-package) waits for ROADMAP A.12.
+`predict`. `--gpus 8 --model_parallel 2`, as in the JAX package, trains
+on a (4, 2) mesh: rm_head and the encoder's fc1 cut over 'model'
+(cli/common.py, train/trainer.py).
 """
 from driving_dirty_tpu_torch.cli.common import run_task
 from driving_dirty_tpu_torch.models.multitask import MultiTask

@@ -10,6 +10,13 @@ with f32 parameters compute in bf16, as in the JAX package.
 Init matches torch defaults in distribution (Kaiming-uniform(a=sqrt(5))
 weights, U(+-1/sqrt(fan_in)) bias), drawn from the caller's
 torch.Generator. The draws differ from JAX's: tests copy weights across.
+
+Under a mesh (parallel/mesh.py) a Linear layer whose weight the task's
+sharding rules cut runs column- or row-parallel (`tp`), and in a
+data-parallel training step BatchNorm's statistics and dropout's draw
+cover the global batch (parallel/collectives.py), as the JAX package's
+step over a mesh computes them. Without a mesh the code is the one-process
+code.
 """
 from __future__ import annotations
 
@@ -19,6 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from driving_dirty_tpu_torch.parallel import collectives as C
+from driving_dirty_tpu_torch.parallel.mesh import step_mesh
+
 
 def _uniform(shape, bound, device, generator):
     t = torch.empty(shape, device=device)
@@ -26,16 +36,24 @@ def _uniform(shape, bound, device, generator):
 
 
 class Linear(nn.Module):
-    """y = x @ weight.T + bias, weight [out, in]."""
+    """y = x @ weight.T + bias, weight [out, in]. `tp` is None, or
+    ("column" | "row", mesh) once parallel/mesh.py:shard_module has cut the
+    weight on its output or its input dimension."""
 
     def __init__(self, in_dim: int, out_dim: int, *, device=None, generator=None):
         super().__init__()
         bound = math.sqrt(1.0 / in_dim)
         self.weight = _uniform((out_dim, in_dim), bound, device, generator)
         self.bias = _uniform((out_dim,), bound, device, generator)
+        self.tp = None
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if self.tp is None:
+            return F.linear(x, w, b)
+        mode, mesh = self.tp
+        parallel = C.column_parallel_linear if mode == "column" else C.row_parallel_linear
+        return parallel(x, w, b, mesh)
 
 
 def _pair(v) -> tuple[int, int]:
@@ -91,10 +109,15 @@ class ConvTranspose2d(nn.Module):
 class BatchNorm(nn.Module):
     """BatchNorm over the trailing feature axis.
 
-    Training normalizes with the biased batch variance and updates the
-    running stats with the unbiased one (momentum 0.1, eps 1e-5). Eval is
+    Training normalizes with the biased batch variance (its statistics in
+    f32, or f64 for f64 input) and updates the running stats with the
+    unbiased one (momentum 0.1, eps 1e-5). Eval is
     (x - mean) * (rsqrt(var + eps) * weight) + bias, with the factors formed
-    in f32 and cast to x's dtype, as the JAX package forms them."""
+    in f32 and cast to x's dtype, as the JAX package forms them. In a
+    data-parallel training step the mean and the variance are the global
+    batch's: Σx, then Σ(x - mean)², summed over the data ranks by an
+    autograd all-reduce (so the backward's means are global too, as in
+    SyncBatchNorm), and the running variance takes the global count."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  *, device=None):
@@ -107,10 +130,16 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            xf = x.float().reshape(-1, x.shape[-1])
-            mean = xf.mean(0)
-            var = xf.var(0, unbiased=False)
-            n = xf.shape[0]
+            xf = x.reshape(-1, x.shape[-1]).to(torch.promote_types(x.dtype, torch.float32))
+            mesh = step_mesh()
+            if mesh is None:
+                mean = xf.mean(0)
+                var = xf.var(0, unbiased=False)
+                n = xf.shape[0]
+            else:
+                n = xf.shape[0] * mesh.data  # the rows divide evenly over 'data'
+                mean = C.all_reduce_sum(xf.sum(0), mesh) / n
+                var = C.all_reduce_sum((xf - mean).square().sum(0), mesh) / n
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)
@@ -124,11 +153,13 @@ class BatchNorm(nn.Module):
 def dropout(x, rate: float, train: bool, generator=None):
     """Inverted dropout, gated on `train`. (The reference's functional
     F.dropout defaults to training=True and so also drops at eval; the JAX
-    package gates it, and so does this.)"""
+    package gates it, and so does this.) In a data-parallel training step
+    the mask is this rank's rows of the global batch's mask."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    mask = C.global_rows(lambda n: torch.rand((n, *x.shape[1:]), device=x.device, generator=generator),
+                         x.shape[0]) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -3,6 +3,9 @@
   * `Loader`: a thread pool decodes items concurrently (PIL releases the
     GIL in its decode loop) into fixed-shape NHWC numpy batches; the final
     partial batch is padded and masked, so every batch has the same shapes.
+    Under a mesh, `shard` makes a data-parallel rank decode only its rows
+    of each global batch (training), or only its whole batches
+    (validation); the index order stays a function of (seed, epoch).
   * `device_prefetch`: keeps batches in flight on the device. On CUDA a
     staging thread copies each batch into pinned host memory, so the
     consumer's thread only queues `non_blocking=True` copies, which overlap
@@ -61,6 +64,18 @@ class Loader:
         self._epoch = 0
         self._external_epoch = None
         self._skip_batches = 0
+        self._shard = None
+
+    def shard(self, rank: int, size: int, whole_batches: bool = False):
+        """Data-parallel rank `rank` of `size`: yield its rows of every
+        global batch (the batch size must divide by `size`; the padded tail
+        is padded before the split), or with `whole_batches` the global
+        batches rank, rank + size, ... whole. Ranks of one 'model' group
+        pass the same rank and so take the same rows."""
+        if size > 1 and not whole_batches and self.batch_size % size:
+            raise ValueError(f"a global batch of {self.batch_size} does not divide over "
+                             f"{size} data-parallel ranks")
+        self._shard = (int(rank), int(size), bool(whole_batches)) if size > 1 else None
 
     def set_epoch(self, epoch: int, base_seed: int | None = None, skip_batches: int = 0):
         """Pin the shuffle order to (base_seed, epoch) for exact resume;
@@ -96,6 +111,14 @@ class Loader:
         if self._skip_batches:
             batches = batches[self._skip_batches :]
             self._skip_batches = 0
+        rows = slice(None)
+        if self._shard is not None:
+            rank, size, whole = self._shard
+            if whole:
+                batches = batches[rank::size]
+            else:
+                k = bs // size
+                rows = slice(rank * k, (rank + 1) * k)
 
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch_batches)
         stop = threading.Event()
@@ -108,12 +131,13 @@ class Loader:
                     for b in batches:
                         if stop.is_set():
                             return
-                        items = list(pool.map(self.dataset.__getitem__, b))
-                        mask = np.ones(bs, bool)
-                        if len(items) < bs:  # pad final batch, mask the copies
-                            mask[len(items) :] = False
-                            items = items + [items[-1]] * (bs - len(items))
-                        out_q.put((_stack(items), mask))
+                        # pad the final batch with its last item, mask the copies
+                        mask = np.arange(bs) < len(b)
+                        idx = np.concatenate([b, np.repeat(b[-1:], bs - len(b))])[rows]
+                        k = max(1, int(mask[rows].sum()))  # valid rows come first
+                        items = list(pool.map(self.dataset.__getitem__, idx[:k]))
+                        items += [items[-1]] * (len(idx) - k)
+                        out_q.put((_stack(items), mask[rows]))
             except BaseException as e:  # noqa: BLE001 — re-raised by the consumer
                 out_q.put(_ProducerError(e))
                 return

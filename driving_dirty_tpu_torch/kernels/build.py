@@ -9,7 +9,10 @@ interface (no PyTorch headers, so a build takes seconds):
 The library lands in `build/` at the root of the checkout, named by a hash of
 the source, the headers of csrc/ and the flags, so an edited source builds anew and an unchanged one
 loads from disk. `load_libraries` starts one nvcc per source at once. A
-missing nvcc or a failed build raises; nothing falls back.
+missing nvcc or a failed build raises; nothing falls back. Ranks of one
+host that build at once (parallel/launch.py) are safe: each compiles into
+a temporary named by its pid and `os.replace`s it onto the library's
+name, an atomic rename, so a rank loads either no file or a whole one.
 
 `host_library` builds the port's C++ host helpers (the libjpeg decoder of
 data/native/, the IoU loop of metrics/native/) the same way with g++; their

@@ -40,6 +40,7 @@ from driving_dirty_tpu_torch.data.pipeline import Loader
 from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin, compute_dtype
 from driving_dirty_tpu_torch.nn.autoencoder import Decoder, Encoder
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, six_to_one_task
+from driving_dirty_tpu_torch.parallel.collectives import batch_mean
 from driving_dirty_tpu_torch.train.task import Task, hp
 
 
@@ -100,7 +101,7 @@ class BasicAE(Int8TrunkMixin, AEConfig, nn.Module):
         self.train(train)
         images = batch["images"] if isinstance(batch, dict) else batch
         y_hat, y = self(images, view, generator)
-        return torch.mean((y.float() - y_hat.float()) ** 2), {}
+        return batch_mean((y.float() - y_hat.float()) ** 2), {}
 
     # --- data ------------------------------------------------------------
     def _datasets(self):

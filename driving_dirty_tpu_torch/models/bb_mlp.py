@@ -28,6 +28,7 @@ from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin, add_la
 from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin, compute_dtype
 from driving_dirty_tpu_torch.models.pretrained import encoder_freeze_mask, init_backbone, load_pretrained_ae
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
+from driving_dirty_tpu_torch.parallel.collectives import batch_mean
 from driving_dirty_tpu_torch.train.task import Task, hp
 
 
@@ -61,7 +62,7 @@ class Boxes(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
     def loss(self, batch, *, train: bool, generator=None):
         self.train(train)
         pred = self(batch["images"], generator)
-        return torch.mean((batch["boxes"] - pred) ** 2), {}
+        return batch_mean((batch["boxes"] - pred) ** 2), {}
 
     def freeze_mask(self, epoch: int):
         return encoder_freeze_mask(self, epoch)

@@ -17,8 +17,9 @@ pretrained encoder before `unfreeze_epoch_no` (default 20; a 0 also reads
 as 20, as in the JAX package). The JAX package's `remat` hparam
 (jax.checkpoint over the encoder) has no separate counterpart: the trunk's
 backward already recomputes the plain trunk, and the CLI accepts `--remat`
-(cli/common.py). The sharding rules wait for multi-device training
-(ROADMAP A.12).
+(cli/common.py). `param_sharding_rules` are the JAX package's: rm_head
+column-parallel and the encoder's fc1.fc row-parallel over 'model'; the box
+head replicates.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from driving_dirty_tpu_torch.models.roadmap import MAP_PIXELS, RoadMapBCE
 from driving_dirty_tpu_torch.models.spatial_bb import _bce_probs, add_geometry_arg, box_targets
 from driving_dirty_tpu_torch.nn.spatial import BoxesMergingCNN, SpatialMappingCNN
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
+from driving_dirty_tpu_torch.parallel.mesh import spec
 from driving_dirty_tpu_torch.train.task import Task, hp
 
 
@@ -121,6 +123,17 @@ class MultiTask(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
 
     def freeze_mask(self, epoch: int):
         return encoder_freeze_mask(self, epoch)
+
+    def param_sharding_rules(self, path, leaf):
+        """The JAX package's rules: rm_head's output dimension and the
+        encoder fc1's input dimension over 'model'."""
+        if path[:2] == ("rm_head", "w"):
+            return spec(None, "model")
+        if path[:2] == ("rm_head", "b"):
+            return spec("model")
+        if path[:4] == ("encoder", "fc1", "fc", "w"):
+            return spec("model", None)
+        return None
 
     @staticmethod
     def add_model_specific_args(parser):

@@ -13,7 +13,10 @@ dropout drawn from `generator`. `freeze_mask` (applied by the Task's
 `apply_freeze_mask`) freezes the pretrained encoder before
 `unfreeze_epoch_no` (30 for roadmap_mse and roadmap_bce_v1, 0 for
 roadmap_bce unless the hparam says otherwise). roadmap_bce lowers its LR on
-a plateau (patience 10, factor 0.1). The labeled loaders come from
+a plateau (patience 10, factor 0.1). `param_sharding_rules` are the JAX
+package's: under a mesh with a 'model' axis the head's fc1 runs
+column-parallel and the encoder's fc1.fc row-parallel
+(parallel/mesh.py:shard_module). The labeled loaders come from
 models/labeled_data.py, the CLI flags from `add_model_specific_args`.
 
 At precision 8 the encoder trunk runs in static-scale int8 at inference
@@ -33,6 +36,8 @@ from driving_dirty_tpu_torch.models.labeled_data import LabeledDataMixin, add_la
 from driving_dirty_tpu_torch.models.precision import Int8TrunkMixin, compute_dtype
 from driving_dirty_tpu_torch.models.pretrained import encoder_freeze_mask, init_backbone, load_pretrained_ae
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
+from driving_dirty_tpu_torch.parallel.collectives import batch_mean
+from driving_dirty_tpu_torch.parallel.mesh import spec
 from driving_dirty_tpu_torch.train.task import Task, hp
 
 MAP_PIXELS = 800 * 800
@@ -92,6 +97,19 @@ class RoadMapBase(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
         {parameter name: trainable}, False for the encoder's parameters."""
         return encoder_freeze_mask(self, epoch)
 
+    def param_sharding_rules(self, path, leaf):
+        """The JAX package's rules, on its paths and layouts: the head's
+        output dimension (fc1 w [latent, 640000] and b) and the encoder fc1's
+        input dimension (w [940032, hidden]) over 'model'; the rest
+        replicates."""
+        if path[:2] == ("fc1", "w"):
+            return spec(None, "model")
+        if path[:2] == ("fc1", "b"):
+            return spec("model")
+        if path[:4] == ("encoder", "fc1", "fc", "w"):
+            return spec("model", None)
+        return None
+
     @torch.no_grad()
     def log_images(self, batch, step_name: str, generator=None):
         """The first scene's stitched input and its target and predicted
@@ -129,7 +147,7 @@ class RoadMap(RoadMapBase):
     def loss(self, batch, *, train: bool, generator=None):
         self.train(train)
         _, probs = self(batch["images"], generator)
-        return torch.mean((batch["road"] - probs) ** 2), {}
+        return batch_mean((batch["road"] - probs) ** 2), {}
 
     @torch.no_grad()
     def val_metrics(self, batch, generator=None):
@@ -153,7 +171,7 @@ class RoadMapBCE(RoadMapBase):
     def _bce(logits, target):
         # F.binary_cross_entropy_with_logits, mean reduction, written out as
         # the JAX package writes it
-        return torch.mean(torch.clamp(logits, min=0) - logits * target
+        return batch_mean(torch.clamp(logits, min=0) - logits * target
                           + torch.log1p(torch.exp(-torch.abs(logits))))
 
     def loss(self, batch, *, train: bool, generator=None):

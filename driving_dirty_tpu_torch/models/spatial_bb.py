@@ -23,8 +23,10 @@ also reads as 20, as `hp(...) or 20` does in the JAX package).
 `add_model_specific_args` gives the CLI's flags (cli/spatial_bb.py), plus
 `--spatial_geometry`, the hparam both packages read, which the JAX CLIs
 leave unexposed: "small" (64x78 views) keeps the same network for quick
-runs. The JAX package's sharding rules wait for multi-device training
-(ROADMAP A.12).
+runs. Data parallelism trains these tasks; the JAX package's 'model'
+rules (the ConvT chain's output channels, which need an all-gather of the
+[b, 800, 800, C / model] activations between layers) are not ported, and
+`param_sharding_rules` raises under a 'model' axis (ROADMAP A.12c-2).
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from driving_dirty_tpu_torch.nn.spatial import (
     SpatialMappingCNN,
 )
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
+from driving_dirty_tpu_torch.parallel.collectives import batch_mean
 from driving_dirty_tpu_torch.train.task import Task, hp
 
 
@@ -52,7 +55,11 @@ def _bce_probs(probs, target, eps=1e-7):
     """F.binary_cross_entropy on probabilities, mean reduction, written out
     as the JAX package writes it."""
     p = torch.clamp(probs, eps, 1 - eps)
-    return -torch.mean(target * torch.log(p) + (1 - target) * torch.log1p(-p))
+    return -batch_mean(target * torch.log(p) + (1 - target) * torch.log1p(-p))
+
+
+SPATIAL_TP = ("tensor parallelism of the spatial heads' channels (model_parallel > 1) is not "
+              "ported (ROADMAP A.12c-2); train spatial_bb / spatial_rm data-parallel")
 
 
 def box_targets(batch, size: int):
@@ -125,7 +132,7 @@ class BBSpatialModel(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
 
     def _loss(self, probs, target):
         if self.mse_loss:
-            return torch.mean((probs - target) ** 2)
+            return batch_mean((probs - target) ** 2)
         return _bce_probs(probs, target)
 
     def loss(self, batch, *, train: bool, generator=None):
@@ -148,6 +155,10 @@ class BBSpatialModel(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
 
     def freeze_mask(self, epoch: int):
         return encoder_freeze_mask(self, epoch)
+
+    def param_sharding_rules(self, path, leaf):
+        """Asked for only under a 'model' axis, which these tasks refuse."""
+        raise NotImplementedError(SPATIAL_TP)
 
     @torch.no_grad()
     def log_images(self, batch, step_name: str, generator=None):

@@ -15,7 +15,10 @@ samples an image, matched on the whole grid (ops/detection.py:
 match_labels_grid); the box head's class CE and smooth-L1 (beta 1) on the
 matched class's slot over 512 balanced proposal samples, the GT boxes
 appended to the proposals. The two samplers rank by uniform noise drawn
-from the step's generator (or passed in: `noise`). Proposals come from the
+from the step's generator (or passed in: `noise`). In a data-parallel
+training step (parallel/mesh.py) the noise is this rank's rows of the
+global batch's draw, the RPN losses' mean over images and the box head's
+count of samples are the global batch's. Proposals come from the
 detached RPN outputs, as the JAX package's stop_gradient.
 
 Labels are the raw dataset category ids, as the reference feeds them
@@ -33,6 +36,7 @@ from driving_dirty_tpu_torch.core import layers as L
 from driving_dirty_tpu_torch.ops import boxes as box_ops
 from driving_dirty_tpu_torch.ops import detection as det
 from driving_dirty_tpu_torch.ops.detection import NEG_INF
+from driving_dirty_tpu_torch.parallel.collectives import batch_mean, global_count, global_rows
 
 RPN_BOX_WEIGHTS = (1.0, 1.0, 1.0, 1.0)
 ROI_BOX_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
@@ -186,8 +190,9 @@ class FasterRCNNHead(nn.Module):
         proposals with the GT boxes appended."""
         cfg = self.cfg
         n = cfg.feat_size * cfg.feat_size * cfg.num_anchors_per_cell
-        rpn = torch.rand((b, n), generator=generator, device=device)
-        roi = torch.rand((b, cfg.rpn_post_nms_top_n + n_gt), generator=generator, device=device)
+        rpn = global_rows(lambda rows: torch.rand((rows, n), generator=generator, device=device), b)
+        roi = global_rows(lambda rows: torch.rand((rows, cfg.rpn_post_nms_top_n + n_gt), generator=generator,
+                                                  device=device), b)
         return {"rpn": rpn, "roi": roi}
 
     def rpn_loss(self, objectness, deltas, gt_boxes, gt_valid, noise):
@@ -219,7 +224,7 @@ class FasterRCNNHead(nn.Module):
         rows = deltas.reshape(b, -1, a_n * 4).gather(1, cell[..., None].expand(-1, -1, a_n * 4))
         d_sel = rows.gather(2, atype[..., None] * 4 + torch.arange(4, device=idx.device))
         reg = (t[..., None] * box_ops.smooth_l1(d_sel - targets, beta=1.0 / 9.0)).sum(dim=(-1, -2)) / n
-        return obj_loss.mean(), reg.mean()
+        return batch_mean(obj_loss), batch_mean(reg)
 
     @torch.no_grad()
     def sample_proposals(self, rois, roi_valid, gt_boxes, gt_valid, gt_labels, noise):
@@ -250,7 +255,7 @@ class FasterRCNNHead(nn.Module):
         cls, reg = self.box_predictions(self.roi_features(features, sampled["rois"]))
         b, r = cls.shape[:2]
         w = sampled["take"].float()
-        n = w.sum().clamp(min=1.0)
+        n = global_count(w.sum()).clamp(min=1.0)
         target = sampled["cls_target"].long()
         onehot = target[..., None] == torch.arange(cfg.num_classes, device=cls.device)
         logp = torch.log_softmax(cls, dim=-1)

@@ -56,3 +56,17 @@ class MetricsLogger:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullLogger:
+    """The logger of a rank that does not log (every rank of a mesh but the
+    first): it takes the same calls and writes nothing."""
+
+    def log_scalars(self, scalars: dict, step: int, prefix: str = ""):
+        pass
+
+    def log_image(self, name: str, image, step: int):
+        pass
+
+    def close(self):
+        pass

@@ -30,6 +30,17 @@ Where the two libraries differ, this follows optax:
 
 The state round-trips through checkpoints/io.py:opt_state_leaves and
 restore_opt_state as the JAX trainer's optax leaves.
+
+Under a mesh (train/trainer.py) `reduce_grads` sums the gradients over the
+data ranks once an update is due (every micro-batch, or the accumulated
+mean at the window's end: the sum is linear; until then each data rank's
+`acc` is its share, which the trainer sums for a checkpoint), and `tp` = (mesh, names of
+the 'model'-sharded parameters) makes the clipping norm global: the
+shards' squared norms are summed over 'model', the replicated leaves
+counted once. The moments and accumulators of a sharded parameter are its
+shard's; which parameters' moments are nonzero is agreed over 'model'
+when they are loaded, so every rank of a 'model' group takes the same
+update path.
 """
 from __future__ import annotations
 
@@ -46,8 +57,10 @@ class Adam:
     frozen or not, as optax holds state for every leaf)."""
 
     def __init__(self, named_params, lr: float, *, clip: float = 0.0, every_k: int = 1,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0,
+                 reduce_grads=None, tp=None):
         self.params = dict(named_params)
+        self.reduce_grads, self.tp = reduce_grads, tp
         self.lr, self.b1, self.b2, self.eps, self.eps_root = lr, b1, b2, eps, eps_root
         self.clip = float(clip or 0.0)
         self.every_k = max(1, int(every_k))
@@ -67,8 +80,24 @@ class Adam:
         for dst, src in ((self.mu, mu), (self.nu, nu), (self.acc, acc)):
             for n, t in (src or {}).items():
                 dst[n].copy_(t)
-        self._moving = {n for n in self.params if self.mu[n].any() or self.nu[n].any()}
-        self._acc_moving = {n for n in self.acc if self.acc[n].any()}
+        self._moving = self._nonzero(self.params, lambda n: self.mu[n].any() | self.nu[n].any())
+        self._acc_moving = self._nonzero(self.acc, lambda n: self.acc[n].any())
+
+    def _nonzero(self, names, test) -> set:
+        """The names whose `test` holds (on any rank of the 'model' group)."""
+        names = sorted(names)
+        if not names:
+            return set()
+        flags = torch.stack([test(n) for n in names]).to(torch.int32)
+        if self.tp is not None:
+            from driving_dirty_tpu_torch.parallel.collectives import summed
+
+            flags = summed(flags, self.tp[0].tp_group)
+        return {n for n, f in zip(names, flags.tolist()) if f}
+
+    def _reduce(self, grads: dict):
+        if self.reduce_grads is not None:
+            self.reduce_grads([grads[n] for n in sorted(grads)])  # the same order on every rank
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -80,11 +109,13 @@ class Adam:
         for p in self.params.values():
             p.grad = None
         if self.every_k == 1:
+            self._reduce(grads)
             self._adam(grads)
             return True
         mean = self._accumulate(grads)
         if mean is None:
             return False
+        self._reduce(mean)
         self._adam(mean)
         for t in mean.values():  # the next window starts from zero
             t.zero_()
@@ -109,6 +140,17 @@ class Adam:
         self.gradient_step += 1
         return {n: self.acc[n] for n in self._acc_moving}
 
+    def _global_norm(self, names, g):
+        norms = torch.stack(torch._foreach_norm(g))
+        if self.tp is None:
+            return torch.linalg.vector_norm(norms)
+        from driving_dirty_tpu_torch.parallel.collectives import summed
+
+        mesh, sharded = self.tp
+        cut = torch.tensor([n in sharded for n in names], device=norms.device)
+        sq = norms.square()
+        return torch.sqrt(sq[~cut].sum() + summed(sq[cut].sum(), mesh.tp_group))
+
     def _one_minus(self, b: float) -> float:
         return _f32(1 - b) if self.clip else _f32(np.float32(1) - np.float32(b))
 
@@ -116,7 +158,7 @@ class Adam:
         names = sorted(set(grads) | self._moving)
         g = [grads[n] if n in grads else torch.zeros_like(self.params[n]) for n in names]
         if self.clip and g:
-            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            g_norm = self._global_norm(names, g)
             keep = g_norm < self.clip
             one = torch.ones_like(g_norm)
             g = torch._foreach_div(g, torch.where(keep, one, g_norm))

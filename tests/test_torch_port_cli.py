@@ -5,7 +5,8 @@ the JAX package, on the CPU:
     basic_ae and the three roadmap variants: every flag the JAX parser
     (trainer flags + the model's flags) takes is taken here, with the same
     defaults, and the canonical reference invocation routes into the task;
-  * the multi-device flags and a missing card raise;
+  * the multi-device flags each train one step through the spawned ranks,
+    and a missing card raises;
   * run_test's Lightning fallback: a reference-style roadmap state_dict
     written with torch.save loads into the weights JAX's
     checkpoints/torch_import.py:import_roadmap gives, exactly;
@@ -20,11 +21,16 @@ from test_torch_threads import torch_worker_threads  # noqa: F401  (torch thread
 
 import argparse
 import filecmp
+import glob
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from driving_dirty_tpu.checkpoints.torch_import import import_roadmap as jax_import_roadmap
 from driving_dirty_tpu.cli.common import add_trainer_args as jax_trainer_args
@@ -33,6 +39,7 @@ from driving_dirty_tpu.data.dataset import LabeledDataset as JLabeledDataset
 from driving_dirty_tpu.data.synthetic import generate as jax_generate
 from driving_dirty_tpu.models import basic_ae as JB
 from driving_dirty_tpu.models import roadmap as JR
+from driving_dirty_tpu_torch.checkpoints import io as ckpt_io
 from driving_dirty_tpu_torch.checkpoints.convert import from_jax, transposed_paths
 from driving_dirty_tpu_torch.cli import basic_ae as cli_basic_ae
 from driving_dirty_tpu_torch.cli import roadmap as cli_roadmap
@@ -97,11 +104,59 @@ def test_the_reference_invocation_routes_into_the_task(name, tiny_ae_ckpt):
     assert (task.hidden_dim, task.latent_dim) == (8, 8) if name == "basic_ae" else task.latent_dim == 6
 
 
+@pytest.fixture(scope="module")
+def rank_data(tmp_path_factory):
+    """A synthetic dataset of 3 unlabeled and 3 labeled scenes of 2 samples,
+    its views cut to their top 16 rows, and a BasicAE checkpoint for them
+    (hidden 8, latent 8, 16 x 306 views)."""
+    d = tmp_path_factory.mktemp("rank_data")
+    generate(str(d / "data"), scenes=3, samples=2, labeled_scenes=3, seed=0)
+    for path in glob.glob(os.path.join(d, "data", "scene_*", "sample_*", "CAM_*.jpeg")):
+        with Image.open(path) as im:
+            view = im.crop((0, 0, im.width, 16))
+        view.save(path, quality=90)
+    ae = B.BasicAE(dict(hidden_dim=8, latent_dim=8, input_height=16, output_height=16), device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    save_task_ckpt(d / "ae.ckpt", ae)
+    return d
+
+
 @pytest.mark.parametrize("flags", [["--gpus", "2"], ["--num_nodes", "2"], ["--model_parallel", "2"]])
 @pytest.mark.parametrize("cli", [cli_basic_ae, cli_roadmap])
-def test_multi_device_flags_raise(cli, flags):
-    with pytest.raises(NotImplementedError, match="A.12"):
-        cli.main(["--device", "cpu", *flags])
+def test_multi_device_flags_raise(cli, flags, rank_data, tmp_path, monkeypatch):
+    """Each multi-device flag (which raised before multi-device training was
+    ported) trains one step on the CPU through the spawn path: --gpus 2
+    spawns two ranks; --num_nodes 2 runs two nodes of one rank each, met
+    through DD_COORDINATOR_ADDRESS / DD_NUM_PROCESSES / DD_PROCESS_ID (node
+    1 in a second process); --model_parallel 2 needs two ranks (--gpus 2).
+    Rank 0's FitResult comes back without its task."""
+    monkeypatch.setenv("DD_NO_TB", "1")
+    monkeypatch.setenv("DD_NO_COST_ANALYSIS", "1")
+    argv = ["--link", str(rank_data / "data"), "--samples_per_scene", "2", "--batch_size", "2",
+            "--max_epochs", "1", "--max_steps", "1", "--log_every_n_steps", "1", "--output_img_freq", "0",
+            "--num_workers", "1", "--device", "cpu", "--default_root_dir", str(tmp_path)]
+    if cli is cli_basic_ae:
+        argv += ["--num_unlabeled_scenes", "3", "--hidden_dim", "8", "--latent_dim", "8",
+                 "--input_height", "16", "--output_height", "16"]
+    else:
+        argv += ["--num_labeled_scenes", "3", "--pretrained_path", str(rank_data / "ae.ckpt")]
+    argv += flags + (["--gpus", "2"] if flags[0] == "--model_parallel" else [])
+    node = None
+    if flags[0] == "--num_nodes":
+        monkeypatch.setenv("DD_COORDINATOR_ADDRESS", f"file://{tmp_path}/rdzv")
+        monkeypatch.setenv("DD_NUM_PROCESSES", "2")
+        node = subprocess.Popen([sys.executable, "-m", cli.__name__, *argv], env=dict(os.environ, DD_PROCESS_ID="1"),
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        monkeypatch.setenv("DD_PROCESS_ID", "0")
+    result = cli.main(argv)
+    if node is not None:
+        out = node.communicate(timeout=120)[0]
+        assert node.returncode == 0, out
+    name = "basic_ae" if cli is cli_basic_ae else "roadmap_bce"
+    assert result.task is None and result.stop_reason == "max_steps=1 reached"
+    assert ckpt_io.load(result.last_ckpt_path)["meta"]["global_step"] == 1
+    recs = [json.loads(x) for x in open(tmp_path / name / "version_0" / "tb" / "metrics.jsonl")]
+    assert [r["step"] for r in recs if "train_loss" in r] == [0]
 
 
 def test_the_default_device_is_cuda_and_raises_without_a_card():

@@ -876,3 +876,35 @@ def test_detection_artifact_launches_trunk_and_roialign_and_matches_predict_on_g
     assert torch.equal(out["valid"], direct["valid"]) and out["valid"].any()
     assert torch.equal(out["labels"], direct["labels"])
     assert (out["scores"] - direct["scores"]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_two_ranks_sharing_the_card_take_the_one_process_step_on_gpu(tmp_path, monkeypatch):
+    """Two ranks on cuda:0 over gloo (parallel/launch.py) take one BasicAE
+    step on the halves of a global batch of 4, dropout and the six-to-one
+    mask drawn for the global batch: the all-reduced loss within 1e-4 of
+    the one-process step's (the training phase's first-step bar in
+    chip_smoke.py), and B1 launched once on each rank."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+
+    from driving_dirty_tpu_torch.models.basic_ae import BasicAE
+    from driving_dirty_tpu_torch.parallel import launch
+
+    monkeypatch.setenv("DD_NO_TB", "1")
+    monkeypatch.setenv("DD_NO_COST_ANALYSIS", "1")
+    rng = np.random.RandomState(0)
+    spec = dict(task=BasicAE, seed=0, device="cuda",
+                hparams=dict(hidden_dim=8, latent_dim=4, input_height=16, output_height=16, batch_size=4),
+                batches=[{"images": rng.randint(0, 256, (4, 6, 16, 306, 3)).astype(np.uint8)}],
+                trainer=dict(max_epochs=1, limit_val_batches=0, log_every_n_steps=1, enable_checkpointing=False,
+                             enable_progress_bar=False))
+    losses = {}
+    for name, ranks in (("one", 1), ("two", 2)):
+        s = dict(spec, trainer=dict(spec["trainer"], default_root_dir=str(tmp_path / name)))
+        out = [launch.fit_worker(s)] if ranks == 1 else launch.spawn(launch.fit_worker, 2, (s,), device="cuda:0")
+        assert [o["launches"]["trunk"] for o in out] == [1] * ranks
+        path = next((tmp_path / name).glob("basic_ae/version_*/tb/metrics.jsonl"))
+        losses[name] = next(json.loads(x)["train_loss"] for x in path.read_text().splitlines() if "train_loss" in x)
+    assert abs(losses["two"] - losses["one"]) <= 1e-4 * abs(losses["one"]), losses

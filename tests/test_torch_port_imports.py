@@ -36,5 +36,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert "driving_dirty_tpu_torch.export" in out["imported"]
     assert "driving_dirty_tpu_torch.kernels.ops" in out["imported"]
     assert "driving_dirty_tpu_torch.cli.serve" in out["imported"]
+    for name in ("mesh", "collectives", "launch"):  # multi-device training
+        assert f"driving_dirty_tpu_torch.parallel.{name}" in out["imported"]
     assert len(out["imported"]) > 50
     assert out["banned"] == []

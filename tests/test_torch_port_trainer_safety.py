@@ -2,7 +2,9 @@
 tests/test_trainer_safety.py (the task-level link never replaces a regular
 file, resume pruning, the checkpoint writer's hook after the write and its
 errors), the stops (max_steps, walltime) and their resumable checkpoint,
-profile_dir and cost_flops, debug_nans, the multi-device arguments, and validation over a padded final
+profile_dir and cost_flops, debug_nans, what a mesh refuses (spatial_bb's
+tensor parallelism, a global batch that does not divide over the data
+ranks), and validation over a padded final
 batch: its weighted mean over the valid rows equals the mean over the whole
 set to float rounding (rtol 1e-6), and the host hook's (value, weight)
 pairs are weighted by their weights. A toy task (one Linear layer, 8
@@ -19,6 +21,8 @@ import torch
 
 from driving_dirty_tpu_torch.checkpoints import io as ckpt_io
 from driving_dirty_tpu_torch.data.pipeline import Loader
+from driving_dirty_tpu_torch.models.spatial_bb import BBSpatialModel
+from driving_dirty_tpu_torch.parallel import launch
 from driving_dirty_tpu_torch.train.task import Task
 from driving_dirty_tpu_torch.train.trainer import Trainer, _prune_to_template
 
@@ -115,10 +119,38 @@ def test_debug_nans_raises_on_a_non_finite_loss(tmp_path):
                 enable_progress_bar=False).fit(Toy(nan=True))
 
 
-def test_multi_device_arguments_raise():
-    for kw in (dict(num_devices=2), dict(model_parallel=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="A.12"):
-            Trainer(device="cpu", **kw)
+def refused_fit(case, root):
+    """A rank's fit that the trainer refuses -> the error's type and text:
+    spatial_bb on a 'model' axis, or a global batch of 3 over 2 data ranks."""
+    if case == "spatial_tp":
+        task = BBSpatialModel(dict(ae_hidden_dim=8, ae_latent_dim=8, ae_input_height=64, ae_input_width=6 * 78,
+                                   pretrained_path=None, spatial_geometry="small"),
+                              device="cpu", generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(num_devices=2, model_parallel=2, device="cpu", default_root_dir=root,
+                          enable_progress_bar=False)
+    else:
+        task = Toy()
+        task.train_loader = lambda: Loader(_List(task.items[:9]), 3, num_workers=1, drop_last=True)
+        trainer = Trainer(num_devices=2, device="cpu", default_root_dir=root, enable_progress_bar=False)
+    try:
+        trainer.fit(task)
+    except (NotImplementedError, ValueError) as e:
+        return type(e).__name__, str(e)
+    return None
+
+
+@pytest.mark.parametrize("case", ["spatial_tp", "indivisible_batch"])
+def test_multi_device_arguments_raise(case, tmp_path, monkeypatch):
+    """What the mesh refuses, on every rank of a 2-rank world (parallel/
+    launch.py): spatial_bb's channel tensor parallelism is not ported
+    (ROADMAP A.12c-2), and a training global batch that does not divide
+    over the data ranks raises, as the JAX package's device_put would."""
+    monkeypatch.setenv("DD_NO_COST_ANALYSIS", "1")
+    got = launch.spawn(refused_fit, 2, (case, str(tmp_path)), device="cpu", threads=1,
+                       init_method=f"file://{tmp_path}/rdzv")
+    want = ("NotImplementedError", "A.12c-2") if case == "spatial_tp" else ("ValueError", "does not divide over 2")
+    for kind, text in got:
+        assert kind == want[0] and want[1] in text, (kind, text)
 
 
 def test_link_latest_preserves_a_regular_file_and_replaces_links(tmp_path):
