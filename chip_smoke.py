@@ -228,19 +228,32 @@
    tensors checked; the decoder's widest dropout draw for the global batch
    and for a rank's half timed; BasicAE dp=2 (3 steps, dropout and the
    six-to-one mask on), roadmap_bce frozen dp=1 x tp=2 (3 steps, its
-   shards' shapes checked) and multitask dp=2 (2 steps, B2 in each rank's
-   loss), full width, each against the one-process run of the same global
-   batches from the same seed within MESH_LOSS_TOL, one gradient sum a
-   step on every data rank, every rank's final weights equal and rank 0's
-   within MESH_STATE_TOL of one process's, B1 (and B2) once a step on
-   every rank; ms a step beside one process's, the gradient all-reduce's
-   bytes and ms a step, peak memory per rank, the backend; then
-   cli.roadmap --gpus 2 --model_parallel 2 --device cuda:0 stopped at step
-   2 and resumed in one process, within RESUME_TOL of the uninterrupted
-   2-rank run. Ranks sharing a card give no scaling figure.
+   shards' shapes checked), multitask dp=2 (2 steps, B2 in each rank's
+   loss) and spatial_rm dp=1 x tp=2 over step 8's BasicAE (3 steps, the
+   reference geometry, its heads' convs cut on their output channels and
+   their activations gathered over 'model', its shards' shapes checked;
+   cuDNN's default algorithms on both sides, the replicated up_conv_5's
+   gradient averaged over 'model' once a step), full
+   width, each against the one-process run of the same global batches
+   from the same seed within MESH_LOSS_TOL, one gradient sum a step on
+   every data rank, every rank's final weights equal and rank 0's within
+   MESH_STATE_TOL of one process's, B1 (and B2) once a step on every
+   rank; ms a step beside one process's, the gradient all-reduce's bytes
+   and ms a step, the 'model' axis's gathers and sums (count, bytes, ms a
+   step), peak memory per rank, the backend; then cli.roadmap --gpus 2
+   --model_parallel 2 --device cuda:0 stopped at step 2 and resumed in one
+   process, within RESUME_TOL of the uninterrupted 2-rank run. Ranks
+   sharing a card give no scaling figure.
+12c. Submit phase: cli.submit's roadmap_bce grid (2 trials of 2 steps and
+   one validation batch) over step 8's BasicAE on the trainer phase's
+   synthetic dataset, in this process (B1 launches counted a trial, finite
+   val_loss); then --on_cluster --parallel_trials 2 on the one card, which
+   must print the clamp to 1 and run its trial as a subprocess with
+   CUDA_VISIBLE_DEVICES=0 (return code 0, finite val_loss, its log).
 13. Prints the card's name and power limit, one JSON line of kernel records
    (with each kernel's launches a request from the artifacts of step 11,
-   and per rank in phase 12), and last the JSON line {"ok": true, "device": {...}}.
+   per rank in phase 12 and per trial in phase 12c), and last the JSON
+   line {"ok": true, "device": {...}}.
 
 TF32 is off for cuDNN and cuBLAS in every phase (printed at each).
 
@@ -270,12 +283,14 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from driving_dirty_tpu_torch.cli import basic_ae as cli_basic_ae
+from driving_dirty_tpu_torch.cli import common as cli_common
 from driving_dirty_tpu_torch.cli import bb_mlp as cli_bb_mlp
 from driving_dirty_tpu_torch.cli import faster_rcnn as cli_faster_rcnn
 from driving_dirty_tpu_torch.cli import multitask as cli_multitask
 from driving_dirty_tpu_torch.cli import roadmap as cli_roadmap
 from driving_dirty_tpu_torch.cli import run_test as cli_run_test
 from driving_dirty_tpu_torch.cli import spatial_bb as cli_spatial_bb
+from driving_dirty_tpu_torch.cli import submit as cli_submit
 from driving_dirty_tpu_torch.cli.eval_boxes import load_detection_task
 from driving_dirty_tpu_torch.cli.run_test import load_roadmap_model
 from driving_dirty_tpu_torch.core import layers as L
@@ -3101,9 +3116,31 @@ def deploy_phase(tmp: Path, smi: str) -> dict:
 # against the uninterrupted 2-rank run within RESUME_TOL. Two ranks on one
 # card give no scaling figure.
 MESH_RANKS = 2
-MESH_RUNS = (("basic_ae", 3, 1), ("roadmap_bce", 3, 2), ("multitask", 2, 1))  # (task, steps, model axis)
+MESH_RUNS = (("basic_ae", 3, 1), ("roadmap_bce", 3, 2), ("multitask", 2, 1),
+             ("spatial_rm", 3, 2))  # (task, steps, model axis)
+MESH_RASTER = ("multitask", "spatial_rm")  # the runs whose loss rasterizes its targets (B2)
+# spatial_rm's shards a rank at tp=2 (the reference geometry): every conv of
+# the heads with 8k output channels cut on them (dim 0 of OIHW, dim 1 of a
+# transposed conv's [in, out, kh, kw]), with its bias; up_conv_5 (8 -> 1)
+# and the encoder whole
+_SPATIAL_CUTS = {**{f"space_map_cnn.{v}_conv.weight": [16, 3, 1, 50] for v in ("fl", "fr", "bl", "br")},
+                 "space_map_cnn.f_conv.weight": [16, 3, 52, 1], "space_map_cnn.b_conv.weight": [16, 3, 52, 1],
+                 "space_map_cnn.out_conv.weight": [16, 32, 3, 3], "box_merge.ss_conv.weight": [16, 32, 1, 24],
+                 "box_merge.ss_deconv.weight": [32, 16, 2, 2], "box_merge.rm_conv_1.weight": [16, 1, 7, 7],
+                 "box_merge.rm_conv_2.weight": [16, 32, 3, 3], "box_merge.up_conv_1.weight": [96, 32, 7, 7],
+                 "box_merge.up_conv_2.weight": [64, 16, 7, 7], "box_merge.up_conv_3.weight": [32, 8, 7, 7],
+                 "box_merge.up_conv_4.weight": [16, 4, 7, 7]}
 MESH_SHARDS = {"roadmap_bce": {"encoder.fc1.fc.weight": [128, 470016], "fc1.weight": [320000, 64],
-                               "fc1.bias": [320000]}}
+                               "fc1.bias": [320000]},
+               "spatial_rm": {**_SPATIAL_CUTS, **{k.replace(".weight", ".bias"): [v[1] if "up_conv" in k or "deconv" in k
+                                                                                   else v[0]]
+                                                  for k, v in _SPATIAL_CUTS.items()}}}
+# The tp runs that train a replicated parameter (spatial_rm's up_conv_5, 8
+# -> 1; roadmap_bce trains only its cut fc1): Adam averages its gradient
+# over 'model' once a step (collectives.py:mean_over_model), so the ranks'
+# copies stay bit-equal under cuDNN's default algorithms, which need not
+# give two ranks the same bits for the same inputs
+MESH_REPLICATED = ("spatial_rm",)
 MESH_CLI_STEPS, MESH_CLI_STOP = 4, 2
 # Losses against one process's, relative, at every step: the same math on
 # the same global batch, only the sums split over the ranks (PR 13's runs
@@ -3121,7 +3158,7 @@ MESH_LOSS_TOL = (1e-4, 1e-4)
 # float noise, and the sum order picks the sign; its bar is 0.5, and what holds
 # its ranks to the global gradient is the count of sums and the ranks'
 # equal weights, with the losses.
-MESH_STATE_TOL = {"basic_ae": 0.5, "roadmap_bce": 1e-4, "multitask": 1e-4}
+MESH_STATE_TOL = {"basic_ae": 0.5, "roadmap_bce": 1e-4, "multitask": 1e-4, "spatial_rm": 1e-4}
 
 
 def gloo_cuda_probe() -> dict:
@@ -3147,9 +3184,10 @@ def mesh_rank(specs: list) -> list:
     return [launch.fit_worker(spec) for spec in specs]
 
 
-def mesh_specs(tmp: Path) -> list:
+def mesh_specs(tmp: Path, ae_ckpt: Path) -> list:
     """The fits of MESH_RUNS on seeded batches of BATCH scenes: the training
-    phase's views (with random road maps), and box_scenes for multitask."""
+    phase's views (with random road maps), and box_scenes for multitask and
+    spatial_rm (over the training phase's BasicAE `ae_ckpt`)."""
     rng = np.random.RandomState(SEED + 6)
     images = request_images(rng, 2)
     roads = [(rng.rand(BATCH, 800, 800) > 0.5).astype(np.float32) for _ in images]
@@ -3158,7 +3196,8 @@ def mesh_specs(tmp: Path) -> list:
     tasks = {"basic_ae": (BasicAE, AE_HPARAMS, [{"images": x} for x in images]),
              "roadmap_bce": (RoadMapBCEv2, dict(HPARAMS, unfreeze_epoch_no=1),
                              [{k: b[k] for k in ("images", "road")} for b in labeled]),
-             "multitask": (MultiTask, BOX_HPARAMS, labeled)}
+             "multitask": (MultiTask, BOX_HPARAMS, labeled),
+             "spatial_rm": (BBSpatialRoadMap, dict(BOX_HPARAMS, pretrained_path=str(ae_ckpt)), labeled)}
     specs = []
     for name, steps, model in MESH_RUNS:
         cls, hparams, batches = tasks[name]
@@ -3216,15 +3255,14 @@ def mesh_phase(tmp: Path, smi: str, ae_ckpt: Path) -> dict:
     print(f"mesh: the decoder's widest dropout draw ({smi}): {draw[BATCH]:.4f} ms for the global batch's 8 "
           f"rows (what each dp=2 rank draws), {draw[BATCH // 2]:.4f} ms for its own 4", flush=True)
 
-    specs = mesh_specs(tmp)
+    specs = mesh_specs(tmp, ae_ckpt)
     t0 = time.perf_counter()
     ranks = launch.spawn(mesh_rank, MESH_RANKS, (specs,), device="cuda:0")
     out["spawned_s"] = time.perf_counter() - t0
     for i, (spec, (name, steps, model)) in enumerate(zip(specs, MESH_RUNS)):
         root = spec["trainer"]["default_root_dir"]
         losses, step_ms = mesh_losses(root, spec["task"].name)
-        one = launch.fit_worker(dict(spec, model_parallel=1,
-                                     trainer=dict(spec["trainer"], default_root_dir=root + "_one")))
+        one = launch.fit_worker(dict(spec, model_parallel=1, trainer=dict(spec["trainer"], default_root_dir=root + "_one")))
         one_losses, one_ms = mesh_losses(root + "_one", spec["task"].name)
         label = f"mesh {name} dp={MESH_RANKS // model} x tp={model}"
         expect(f"{label} steps", len(losses), steps)
@@ -3232,6 +3270,8 @@ def mesh_phase(tmp: Path, smi: str, ae_ckpt: Path) -> dict:
         per_rank = [rank[i] for rank in ranks]
         for r, got in enumerate(per_rank):
             expect(f"{label} rank {r} gradient sums", got["grad_reduce"]["calls"], steps if model == 1 else 0)
+            expect(f"{label} rank {r} replicated gradients' means over 'model'", got["tp_comm"]["mean"]["calls"],
+                   steps if name in MESH_REPLICATED else 0)
             if r:
                 expect(f"{label} rank {r} final weights equal to rank 0's",
                        [k for k, v in got.pop("state").items() if not torch.equal(v, per_rank[0]["state"][k])], [])
@@ -3240,7 +3280,7 @@ def mesh_phase(tmp: Path, smi: str, ae_ckpt: Path) -> dict:
               f"{state_err:.3e} (tolerance {MESH_STATE_TOL[name]}); every rank's equal to rank 0's", flush=True)
         if not state_err <= MESH_STATE_TOL[name]:
             raise RuntimeError(f"{label}: final weights {state_err} from one process's > {MESH_STATE_TOL[name]}")
-        want = (steps, steps if name == "multitask" else 0)  # (B1, B2) launches
+        want = (steps, steps if name in MESH_RASTER else 0)  # (B1, B2) launches
         for r, got in enumerate(per_rank + [one]):
             expect(f"{label} {'one-process' if r == len(per_rank) else f'rank {r}'} launches",
                    (got["launches"]["trunk"], got["launches"]["raster"]), want)
@@ -3259,7 +3299,16 @@ def mesh_phase(tmp: Path, smi: str, ae_ckpt: Path) -> dict:
                "peak_memory_gb": [got["peak_memory_gb"] for got in per_rank],
                "one_process_peak_memory_gb": one["peak_memory_gb"],
                "launches": [got["launches"] for got in per_rank], "shard_shapes": per_rank[0]["shard_shapes"],
-               "backend": per_rank[0]["backend"]}
+               "backend": per_rank[0]["backend"],
+               "tp_comm_per_step": {kind: {k: v / steps for k, v in per_rank[0]["tp_comm"][kind].items()}
+                                    for kind in ("gather", "sum", "mean")}}
+        tp = rec["tp_comm_per_step"]
+        if model > 1:
+            print(f"{label} ({smi}): the 'model' axis a step on rank 0 (card synced around each): "
+                  f"{tp['gather']['calls']:.0f} gathers of {tp['gather']['bytes'] / 1e6:.1f} MB in "
+                  f"{tp['gather']['ms']:.1f} ms, {tp['sum']['calls']:.0f} sums of {tp['sum']['bytes'] / 1e6:.1f} MB "
+                  f"in {tp['sum']['ms']:.1f} ms, {tp['mean']['calls']:.0f} means of the replicated gradients "
+                  f"of {tp['mean']['bytes'] / 1e6:.4f} MB in {tp['mean']['ms']:.1f} ms", flush=True)
         print(f"{label} ({smi}; {MESH_RANKS} ranks share one card over {rec['backend']}: no scaling figure): "
               f"median ms a step {rec['median_step_ms']:.1f} (steps after the first) against "
               f"{rec['one_process_median_step_ms']:.1f} in one process; gradient all-reduce "
@@ -3317,6 +3366,77 @@ def mesh_cli(tmp: Path, smi: str, ae_ckpt: Path) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# Phase 12c: cli.submit's grid of roadmap_bce (unfreeze_epoch_no 0 and 20)
+# on the trainer phase's synthetic dataset, SUBMIT_STEPS steps and one
+# validation batch a trial (B1 once each), over the training phase's
+# BasicAE: in this process, then as concurrent trials asked for 2 at a time
+# on the one card, which submit clamps to 1 (printed) and runs as a
+# subprocess pinned to CUDA_VISIBLE_DEVICES=0.
+SUBMIT_TRIALS, SUBMIT_STEPS = 2, 2
+
+
+def submit_phase(tmp: Path, smi: str, ae_ckpt: Path) -> dict:
+    """Phase 12c (see SUBMIT_TRIALS): each trial's return code, finite
+    val_loss and B1 launches (in process), the clamp and the pinning."""
+    tf32_line("submit")
+    t_phase = time.perf_counter()
+    data = tmp / "cli_data"
+    if not data.exists():
+        generate(str(data), scenes=CLI_SCENES, samples=CLI_SAMPLES, labeled_scenes=CLI_SCENES, seed=SEED)
+    argv = ["--model", "roadmap_bce", "--link", str(data), "--samples_per_scene", str(CLI_SAMPLES),
+            "--num_labeled_scenes", str(CLI_SCENES), "--pretrained_path", str(ae_ckpt), "--batch_size", str(BATCH),
+            "--max_epochs", "1", "--limit_train_batches", str(SUBMIT_STEPS), "--limit_val_batches", "1",
+            "--log_every_n_steps", "1", "--output_img_freq", "0", "--seed", str(SEED), "--device", "cuda",
+            "--logs_save_path", str(tmp / "submit")]
+    fit, trials = cli_common.fit_from_args, []
+
+    def counted(task_cls, args):
+        reset_launches()
+        result = fit(task_cls, args)
+        torch.cuda.synchronize()
+        trials.append({"trunk_launches": trunk.launches, "raster_launches": raster.launches,
+                       "best_val_loss": result.best_val_loss, "stop_reason": result.stop_reason})
+        return result
+
+    t0 = time.perf_counter()
+    with mock.patch.object(cli_common, "fit_from_args", counted):
+        results = cli_submit.main(argv + ["--tt_name", "grid", "--nb_hopt_trials", str(SUBMIT_TRIALS)])
+    in_process_s = time.perf_counter() - t0
+    expect("submit in-process trials", len(results), SUBMIT_TRIALS)
+    for i, rec in enumerate(trials):
+        if not np.isfinite(rec["best_val_loss"]):
+            raise RuntimeError(f"submit trial {i}: val_loss {rec['best_val_loss']}")
+        expect(f"submit trial {i} stop", rec["stop_reason"], None)
+        expect(f"submit trial {i} (B1, B2) launches", (rec["trunk_launches"], rec["raster_launches"]),
+               (SUBMIT_STEPS + 1, 0))
+    print(f"submit ({smi}): {SUBMIT_TRIALS} roadmap_bce trials in process "
+          f"{[r['best_val_loss'] for r in trials]} val_loss, B1 launches "
+          f"{[r['trunk_launches'] for r in trials]}, {in_process_s:.1f} s", flush=True)
+
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(said):
+        fanout = cli_submit.main(argv + ["--tt_name", "fanout", "--nb_hopt_trials", "1", "--on_cluster",
+                                         "--parallel_trials", "2"])
+    fanout_s = time.perf_counter() - t0
+    print(said.getvalue(), end="", flush=True)
+    if "clamping --parallel_trials 2 -> 1" not in said.getvalue():
+        raise RuntimeError("submit: --parallel_trials 2 on one card was not clamped to 1")
+    expect("submit exit code", cli_submit.exit_code(fanout), 0)
+    for r in fanout:
+        log = Path(r["log"]).read_text()
+        if r["rc"] != 0 or r["val_loss"] is None or not np.isfinite(r["val_loss"]):
+            raise RuntimeError(f"submit trial {r['trial']}: rc {r['rc']}, val_loss {r['val_loss']}:\n{log[-3000:]}")
+        expect(f"submit trial {r['trial']} CUDA_VISIBLE_DEVICES", r["cuda_visible_devices"], "0")
+    print(f"submit ({smi}): --parallel_trials 2 clamped to 1 on this card; trial 0 as a subprocess with "
+          f"CUDA_VISIBLE_DEVICES=0: rc 0, val_loss {fanout[0]['val_loss']}, {fanout[0]['seconds']} s "
+          f"({fanout_s:.1f} s with the summary)", flush=True)
+    out = {"in_process": trials, "in_process_s": in_process_s, "fanout": fanout, "fanout_s": fanout_s,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"submit phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -3365,6 +3485,7 @@ def main(argv=None) -> int:
         decode = decode_phase(Path(tmp), smi, ckpt, training["ae_ckpt"])
         deploy = deploy_phase(Path(tmp), smi)
         mesh = mesh_phase(Path(tmp), smi, training["ae_ckpt"])
+        submit = submit_phase(Path(tmp), smi, training["ae_ckpt"])
 
     box_names = [cls.name for cls in BOX_TRAIN_TASKS]
     box_clis = ("spatial_rm", "multitask", "bb_mlp")
@@ -3377,7 +3498,7 @@ def main(argv=None) -> int:
     raster_rec["launches"] = boxes["multitask_32"]["launches"]["raster"]
     raster_rec["training_launches"] = {k: box_training[k]["launches"]["raster"] for k in box_names}
     raster_rec["cli_launches"] = {k: trainer[k]["raster_launches"] for k in box_clis}
-    raster_rec["mesh_launches_per_rank"] = {"multitask": [r["raster"] for r in mesh["multitask"]["launches"]]}
+    raster_rec["mesh_launches_per_rank"] = {name: [r["raster"] for r in mesh[name]["launches"]] for name in MESH_RASTER}
     records.append(raster_rec)
     det_names = [cls.name for cls in DET_TRAIN_TASKS]
     det_clis = ("faster_rcnn_rm", "faster_rcnn")
@@ -3423,6 +3544,7 @@ def main(argv=None) -> int:
     f32_path["training_launches"] = {k: box_training[k]["launches"]["trunk"] for k in box_names}
     f32_path["mesh_launches_per_rank"] = {name: [r["trunk"] for r in mesh[name]["launches"]]
                                           for name, _, _ in MESH_RUNS}
+    f32_path["submit_launches_per_trial"] = [t["trunk_launches"] for t in submit["in_process"]]
     bf16_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "bfloat16")
     bf16_path["cli_launches"] = {k: trainer[k]["trunk_launches"]
                                  for k in ("roadmap_bce_16", "roadmap_bce_8", "multitask_16")}
@@ -3436,7 +3558,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serving": served, "box_family": boxes, "detection": detection,
                       "precision8": precision8, "training": training, "box_training": box_training,
                       "det_training": det_training, "trainer": trainer, "decode": decode, "deploy": deploy,
-                      "mesh": mesh},
+                      "mesh": mesh, "submit": submit},
                      default=str))
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -16,7 +16,9 @@ here:
                   spawns its --gpus ranks.
   --model_parallel M   the 'model' axis of the (data, model) mesh over the
                   world's ranks: the task's sharding rules cut its large
-                  Linear layers over M ranks (train/trainer.py).
+                  Linear layers (roadmap, multitask) or its heads' conv
+                  channels (spatial_bb, spatial_rm) over M ranks
+                  (train/trainer.py).
   --device        where to train: cuda (the default) or cpu. There is no
                   fallback: without a card, cuda raises. Ranks of cuda take
                   cuda:LOCAL_RANK and NCCL (the card must exist); cuda:K
@@ -123,27 +125,32 @@ def trainer_from_args(args) -> Trainer:
     )
 
 
-def _rank_run(task_cls, argv, description):
-    """One spawned rank of `run_task` -> its FitResult without the task."""
-    return dataclasses.replace(run_task(task_cls, argv, description), task=None)
+def _rank_run(task_cls, args):
+    """One spawned rank of `fit_from_args` -> its FitResult without the task."""
+    return dataclasses.replace(fit_from_args(task_cls, args), task=None)
 
 
 def run_task(task_cls, argv=None, description=None):
-    """A per-model entry point: parser = trainer flags + the model's flags
-    -> seed random and numpy, build the task on the device from a generator
-    seeded with --seed (alike on every rank), fit. With --gpus > 1 or
-    --num_nodes > 1 and no launcher, this process spawns the node's ranks,
-    which run this function, and returns rank 0's FitResult (task None)."""
+    """A per-model entry point: parser = trainer flags + the model's flags,
+    then `fit_from_args`."""
     argv = sys.argv[1:] if argv is None else list(argv)
     parser = argparse.ArgumentParser(description=description or task_cls.__name__)
     parser = add_trainer_args(parser)
     parser = task_cls.add_model_specific_args(parser)
-    args = parser.parse_args(argv)
+    return fit_from_args(task_cls, parser.parse_args(argv))
+
+
+def fit_from_args(task_cls, args):
+    """Seed random and numpy, build the task on the device from a generator
+    seeded with --seed (alike on every rank), fit. With --gpus > 1 or
+    --num_nodes > 1 and no launcher, this process spawns the node's ranks,
+    which run this function on the same `args`, and returns rank 0's
+    FitResult (task None). cli/submit.py runs each trial through here."""
     gpus = args.gpus or 1
     if not dist.is_initialized() and not mesh_lib.launched() and (gpus > 1 or args.num_nodes > 1):
         nodes = mesh_lib.node_rendezvous(args.num_nodes)
         init, world, first = (None, gpus, 0) if nodes is None else (nodes[0], nodes[1] * gpus, nodes[2] * gpus)
-        return launch.spawn(_rank_run, gpus, (task_cls, argv, description), device=args.device,
+        return launch.spawn(_rank_run, gpus, (task_cls, args), device=args.device,
                             init_method=init, world=world, first_rank=first)[0]
     mesh_lib.initialize_distributed(args.num_nodes, device=args.device)  # a launcher's world
     random.seed(args.seed)

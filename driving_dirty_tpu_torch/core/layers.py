@@ -12,7 +12,8 @@ weights, U(+-1/sqrt(fan_in)) bias), drawn from the caller's
 torch.Generator. The draws differ from JAX's: tests copy weights across.
 
 Under a mesh (parallel/mesh.py) a Linear layer whose weight the task's
-sharding rules cut runs column- or row-parallel (`tp`), and in a
+sharding rules cut runs column- or row-parallel (`tp`), a Conv2d or
+ConvTranspose2d cut on its output channels column-parallel, and in a
 data-parallel training step BatchNorm's statistics and dropout's draw
 cover the global batch (parallel/collectives.py), as the JAX package's
 step over a mesh computes them. Without a mesh the code is the one-process
@@ -60,9 +61,26 @@ def _pair(v) -> tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
+def _column_conv(conv, x, w, b, tp, gather: bool):
+    """conv(x, w, b) on the NCHW view of an NHWC activation -> NHWC. Under
+    tp = ("column", mesh), w and b hold this rank's output channels: the
+    input's gradient is summed over 'model' (f), and the output channels
+    are gathered from every rank (g) unless `gather` is False, when this
+    rank's channels come back."""
+    x = x.permute(0, 3, 1, 2)
+    if tp is None:
+        return conv(x, w, b).permute(0, 2, 3, 1)
+    mesh = tp[1]
+    y = conv(C.copy_to_tp(x, mesh), w, b)
+    return (C.gather_channels(y, mesh) if gather else y).permute(0, 2, 3, 1)
+
+
 class Conv2d(nn.Module):
     """NHWC conv with an OIHW weight; torch.nn.Conv2d shape semantics.
-    kernel_size, stride, padding and dilation are an int or an (h, w) pair."""
+    kernel_size, stride, padding and dilation are an int or an (h, w) pair.
+    `tp` is None, or ("column", mesh) once parallel/mesh.py:shard_module has
+    cut the weight and the bias on their output channels; `forward(x,
+    gather=False)` then returns this rank's channels only."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
                  padding=0, dilation=1, *, device=None, generator=None):
@@ -72,11 +90,13 @@ class Conv2d(nn.Module):
         self.stride, self.padding, self.dilation = _pair(stride), _pair(padding), _pair(dilation)
         self.weight = _uniform((out_channels, in_channels, kh, kw), bound, device, generator)
         self.bias = _uniform((out_channels,), bound, device, generator)
+        self.tp = None
 
-    def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), self.bias.to(x.dtype),
-                     stride=self.stride, padding=self.padding, dilation=self.dilation)
-        return y.permute(0, 2, 3, 1)
+    def forward(self, x, gather: bool = True):
+        def conv(x, w, b):
+            return F.conv2d(x, w, b, stride=self.stride, padding=self.padding, dilation=self.dilation)
+
+        return _column_conv(conv, x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.tp, gather)
 
 
 class ConvTranspose2d(nn.Module):
@@ -87,7 +107,8 @@ class ConvTranspose2d(nn.Module):
 
     Init fan-in is out_channels * kh * kw, as torch's (and the JAX package's).
     An ordinary conv that the JAX package leaves to XLA: it runs through
-    F.conv_transpose2d (cuDNN on the card)."""
+    F.conv_transpose2d (cuDNN on the card). `tp` as Conv2d's: the weight's
+    output dimension is its dim 1."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
                  padding=0, output_padding=0, dilation=1, *, device=None, generator=None):
@@ -98,12 +119,14 @@ class ConvTranspose2d(nn.Module):
         self.output_padding, self.dilation = _pair(output_padding), _pair(dilation)
         self.weight = _uniform((in_channels, out_channels, kh, kw), bound, device, generator)
         self.bias = _uniform((out_channels,), bound, device, generator)
+        self.tp = None
 
-    def forward(self, x):
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-                               self.bias.to(x.dtype), stride=self.stride, padding=self.padding,
-                               output_padding=self.output_padding, dilation=self.dilation)
-        return y.permute(0, 2, 3, 1)
+    def forward(self, x, gather: bool = True):
+        def conv(x, w, b):
+            return F.conv_transpose2d(x, w, b, stride=self.stride, padding=self.padding,
+                                      output_padding=self.output_padding, dilation=self.dilation)
+
+        return _column_conv(conv, x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.tp, gather)
 
 
 class BatchNorm(nn.Module):

@@ -23,10 +23,11 @@ also reads as 20, as `hp(...) or 20` does in the JAX package).
 `add_model_specific_args` gives the CLI's flags (cli/spatial_bb.py), plus
 `--spatial_geometry`, the hparam both packages read, which the JAX CLIs
 leave unexposed: "small" (64x78 views) keeps the same network for quick
-runs. Data parallelism trains these tasks; the JAX package's 'model'
-rules (the ConvT chain's output channels, which need an all-gather of the
-[b, 800, 800, C / model] activations between layers) are not ported, and
-`param_sharding_rules` raises under a 'model' axis (ROADMAP A.12c-2).
+runs. `param_sharding_rules` are the JAX package's: under a 'model' axis
+the conv and transposed-conv weights of box_merge and space_map_cnn with
+8k output channels are cut on them, with their biases, and run
+column-parallel (nn/spatial.py); the 1-channel last stage and the encoder
+stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from driving_dirty_tpu_torch.nn.spatial import (
 )
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
 from driving_dirty_tpu_torch.parallel.collectives import batch_mean
+from driving_dirty_tpu_torch.parallel.mesh import spec
 from driving_dirty_tpu_torch.train.task import Task, hp
 
 
@@ -56,10 +58,6 @@ def _bce_probs(probs, target, eps=1e-7):
     as the JAX package writes it."""
     p = torch.clamp(probs, eps, 1 - eps)
     return -batch_mean(target * torch.log(p) + (1 - target) * torch.log1p(-p))
-
-
-SPATIAL_TP = ("tensor parallelism of the spatial heads' channels (model_parallel > 1) is not "
-              "ported (ROADMAP A.12c-2); train spatial_bb / spatial_rm data-parallel")
 
 
 def box_targets(batch, size: int):
@@ -157,8 +155,16 @@ class BBSpatialModel(Int8TrunkMixin, LabeledDataMixin, Task, nn.Module):
         return encoder_freeze_mask(self, epoch)
 
     def param_sharding_rules(self, path, leaf):
-        """Asked for only under a 'model' axis, which these tasks refuse."""
-        raise NotImplementedError(SPATIAL_TP)
+        """The JAX package's rules, on its paths and layouts: a conv or
+        transposed-conv weight of the heads (HWIO, [kh, kw, in, out]) is cut
+        on its output channels when they are a multiple of 8, and its bias
+        alike; the 1-channel last stage and the encoder replicate."""
+        if path[0] in ("box_merge", "space_map_cnn"):
+            if path[-1] == "w" and leaf.ndim == 4 and leaf.shape[-1] % 8 == 0:
+                return spec(None, None, None, "model")
+            if path[-1] == "b" and leaf.ndim == 1 and leaf.shape[0] % 8 == 0:
+                return spec("model")
+        return None
 
     @torch.no_grad()
     def log_images(self, batch, step_name: str, generator=None):

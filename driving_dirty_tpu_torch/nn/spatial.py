@@ -5,6 +5,15 @@ merge/upsample heads. NHWC throughout; parameter names as in the JAX
 package. Plain convs and transposed convs, which the JAX package leaves to
 XLA, run through torch (cuDNN on the card).
 
+Under a 'model' mesh axis the task's sharding rules
+(models/spatial_bb.py) cut every conv and transposed conv of these heads
+with 8k output channels, and each runs column-parallel
+(core/layers.py): it computes this rank's output channels from the whole
+input and all-gathers them, so every layer that follows (the next conv,
+the merge concatenation, the 1-channel last stage, which stays whole)
+sees every channel. SpatialMappingCNN gathers once, after its six
+per-view convs are tiled, in place of six gathers.
+
 Shapes at the "reference" geometry (camera views 256x306):
   SpatialMappingCNN:      [b, 6, 256, 306, 3] -> [b, 256, 256, 32]
   BoxesMergingCNN:        ssr [b, 128, 918, 32] + spatial -> [b, 800, 800, 1]
@@ -16,6 +25,7 @@ import torch
 from torch import nn
 
 from driving_dirty_tpu_torch.core import layers as L
+from driving_dirty_tpu_torch.parallel import collectives as C
 
 # Resolution presets. "reference" is the reference architecture (256x306
 # views -> 256x256 BEV grid -> 800x800 raster); "small" is the same network
@@ -79,16 +89,22 @@ class SpatialMappingCNN(nn.Module):
         self.out_conv = L.Conv2d(32, 32, 3, 1, 0, **kw)
 
     def forward(self, x):
-        fl = torch.relu(self.fl_conv(x[:, 0]))
-        bl = torch.relu(self.bl_conv(x[:, 3]))
+        # under tp the per-view convs give this rank's channels, gathered
+        # once for the tiled grid
+        kw = dict(gather=False)
+        fl = torch.relu(self.fl_conv(x[:, 0], **kw))
+        bl = torch.relu(self.bl_conv(x[:, 3], **kw))
         # the reference's rot90 on NCHW planes (2,3) / (3,2) == NHWC axes (1,2) / (2,1)
-        b_ = torch.relu(self.b_conv(torch.rot90(x[:, 4], 1, dims=(1, 2))))
-        f_ = torch.relu(self.f_conv(torch.rot90(x[:, 1], 1, dims=(2, 1))))
-        br = torch.relu(self.br_conv(torch.flip(x[:, 5], dims=(1, 2))))
-        fr = torch.relu(self.fr_conv(torch.flip(x[:, 2], dims=(1, 2))))
+        b_ = torch.relu(self.b_conv(torch.rot90(x[:, 4], 1, dims=(1, 2)), **kw))
+        f_ = torch.relu(self.f_conv(torch.rot90(x[:, 1], 1, dims=(2, 1)), **kw))
+        br = torch.relu(self.br_conv(torch.flip(x[:, 5], dims=(1, 2)), **kw))
+        fr = torch.relu(self.fr_conv(torch.flip(x[:, 2], dims=(1, 2)), **kw))
         grid = torch.cat([torch.cat([bl, fl], dim=2),
                           torch.cat([b_, f_], dim=2),
                           torch.cat([br, fr], dim=2)], dim=1)
+        tp = self.fl_conv.tp
+        if tp is not None:
+            grid = C.gather_from_tp(grid, tp[1])
         return torch.relu(self.out_conv(grid))
 
 

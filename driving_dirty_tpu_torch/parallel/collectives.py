@@ -11,6 +11,10 @@ Tensor parallelism on the 'model' axis (Megatron's f and g):
   * `gather_from_tp` forward all-gather on the last dimension, backward this
                      rank's block (the gathered output is used alike on
                      every rank, so the gradient needs no sum);
+                     `gather_channels` is the same on the channels of an
+                     NCHW activation, in the memory order it has (an
+                     NCHW-contiguous one stays so: a conv layer cut on its
+                     output channels, core/layers.py);
   * `scatter_to_tp`  forward this rank's block of the last dimension,
                      backward all-gather (the replicated input of a
                      row-parallel layer gets its whole gradient back, so the
@@ -23,6 +27,10 @@ gradients the trainer sums), `global_count` (a count over the global
 batch), `global_rows` (a random draw of the global batch's shape, of which
 this rank keeps its rows), `all_reduce_sum` (forward and backward an
 all-reduce, for BatchNorm's statistics). Outside a step each is its one-process form.
+
+`TP_COMM` counts the activation collectives over 'model' (the gathers,
+and the sums of `copy_to_tp`'s backward and `reduce_from_tp`), and
+`mean_over_model`'s averages of the replicated parameters' gradients.
 
 `all_reduce_grads` sums gradients over 'data' in flat buckets
 (`sum_in_buckets`, which also sums a checkpoint's accumulator). Only
@@ -44,16 +52,55 @@ BUCKET_NUMEL = 1 << 24  # elements a gradient bucket (64 MB of f32)
 # when `timed` is set, each call's host ms with the device synced around it
 GRAD_REDUCE = {"calls": 0, "bytes": 0, "ms": [], "timed": False}
 
+# the activation collectives over 'model' of this process, by kind: calls,
+# bytes (of the gathered or summed tensor) and, when `timed` is set, their
+# host ms in all with the device synced around each
+TP_KINDS = ("gather", "sum", "mean")
+TP_COMM = {"timed": False, **{kind: {"calls": 0, "bytes": 0, "ms": 0.0} for kind in TP_KINDS}}
+
+
+def reset_tp_comm(timed: bool = False) -> None:
+    TP_COMM["timed"] = timed
+    for kind in TP_KINDS:
+        TP_COMM[kind].update(calls=0, bytes=0, ms=0.0)
+
+
+def _counted(kind, cuda, run):
+    """run() -> (result, bytes moved): the result, counted in TP_COMM[kind]."""
+    timed = TP_COMM["timed"] and cuda
+    if timed:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, nbytes = run()
+    if timed:
+        torch.cuda.synchronize()
+        TP_COMM[kind]["ms"] += 1e3 * (time.perf_counter() - t0)
+    TP_COMM[kind]["calls"] += 1
+    TP_COMM[kind]["bytes"] += nbytes
+    return y
+
+
+def _tp_collective(kind, fn, x, *args):
+    """fn(x, *args), counted in TP_COMM[kind] with the bytes of its result."""
+    def run():
+        y = fn(x, *args)
+        return y, y.numel() * y.element_size()
+
+    return _counted(kind, x.is_cuda, run)
+
 
 def _block(x, mesh, dim=-1):
     k = x.shape[dim] // mesh.model
     return x.narrow(dim, mesh.tp_rank * k, k)
 
 
-def _all_gather_last(x, mesh):
-    parts = [torch.empty_like(x) for _ in range(mesh.model)]
+def _all_gather(x, mesh, dim=-1):
+    """Every 'model' rank's `x` joined on `dim` in rank order. Each block
+    travels contiguous, so a dimension other than the last suits a tensor
+    whose memory is contiguous in this order (dim 1 of an NCHW one)."""
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(mesh.model)]
     dist.all_gather(parts, x.contiguous(), group=mesh.tp_group)
-    return torch.cat(parts, dim=-1)
+    return torch.cat(parts, dim=dim)
 
 
 def summed(x, group):
@@ -71,13 +118,13 @@ class _CopyToTP(Function):
 
     @staticmethod
     def backward(ctx, g):
-        return summed(g, ctx.mesh.tp_group), None
+        return _tp_collective("sum", summed, g, ctx.mesh.tp_group), None
 
 
 class _ReduceFromTP(Function):
     @staticmethod
     def forward(ctx, x, mesh):
-        return summed(x, mesh.tp_group)
+        return _tp_collective("sum", summed, x, mesh.tp_group)
 
     @staticmethod
     def backward(ctx, g):
@@ -86,13 +133,13 @@ class _ReduceFromTP(Function):
 
 class _GatherFromTP(Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return _all_gather_last(x, mesh)
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _tp_collective("gather", _all_gather, x, mesh, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _block(g, ctx.mesh).contiguous(), None
+        return _block(g, ctx.mesh, ctx.dim).contiguous(), None, None
 
 
 class _ScatterToTP(Function):
@@ -103,7 +150,7 @@ class _ScatterToTP(Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather_last(g, ctx.mesh), None
+        return _all_gather(g, ctx.mesh), None
 
 
 def copy_to_tp(x, mesh):
@@ -115,7 +162,17 @@ def reduce_from_tp(x, mesh):
 
 
 def gather_from_tp(x, mesh):
-    return _GatherFromTP.apply(x, mesh)
+    return _GatherFromTP.apply(x, mesh, -1)
+
+
+def gather_channels(y, mesh):
+    """y [b, C / model, H, W], this rank's channels -> [b, C, H, W], every
+    rank's in rank order, in y's memory format: NCHW-contiguous blocks join
+    on dim 1 as they lie, channels-last ones on their last memory
+    dimension. The backward takes this rank's channels."""
+    if y.is_contiguous():
+        return _GatherFromTP.apply(y, mesh, 1)
+    return _GatherFromTP.apply(y.permute(0, 2, 3, 1), mesh, -1).permute(0, 3, 1, 2)
 
 
 def scatter_to_tp(x, mesh):
@@ -141,7 +198,7 @@ def gather_shard(mesh, t: torch.Tensor, sharding) -> torch.Tensor:
     (dim, "model"); no gradient."""
     dim = sharding[0]
     t = t.detach().movedim(dim, -1).contiguous()
-    return _all_gather_last(t, mesh).movedim(-1, dim).contiguous()
+    return _all_gather(t, mesh).movedim(-1, dim).contiguous()
 
 
 # ----------------------------------------------------------------------------
@@ -217,6 +274,26 @@ def sum_in_buckets(tensors, group) -> int:
             if t is not None:
                 bucket, size = [t], t.numel()
     return nbytes
+
+
+def mean_over_model(tensors, mesh) -> None:
+    """Average the replicated parameters' gradients over 'model' in place.
+    Every 'model' rank computes them whole from the same inputs, but the
+    card's default algorithms (cuDNN's transposed-conv weight gradient among
+    them) need not give every rank the same bits, and Adam would carry the
+    difference into the weights step after step. The mean (bucketed, as
+    `sum_in_buckets`) hands every rank the same gradient, so the copies stay
+    equal; where the ranks' gradients are equal it changes no bit at a
+    power-of-two 'model' width. Counted in TP_COMM["mean"]."""
+    if not tensors:
+        return
+
+    def run():
+        nbytes = sum_in_buckets(tensors, mesh.tp_group)
+        torch._foreach_div_(tensors, float(mesh.model))
+        return None, nbytes
+
+    _counted("mean", tensors[0].is_cuda, run)
 
 
 def all_reduce_grads(tensors, group) -> int:

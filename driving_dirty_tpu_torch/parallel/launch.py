@@ -132,11 +132,13 @@ def fit_worker(spec: dict) -> dict:
 
     -> best_val_loss, last_ckpt_path, stop_reason, scenes_per_sec,
     launches (each kernel's launches during the fit), grad_reduce (calls,
-    bytes, the ms of each call when timed), fit_s, peak_memory_gb (on a
-    card), shard_shapes, the rank's coordinates, the mesh's backend, and
+    bytes, the ms of each call when timed), tp_comm (the 'model'-axis
+    gathers and sums of activations, and the means of the replicated
+    gradients: calls, bytes, ms in all when timed), fit_s, peak_memory_gb
+    (on a card), shard_shapes, the rank's coordinates, the mesh's backend, and
     "state" when asked."""
     from driving_dirty_tpu_torch.nn.autoencoder import DenseBlock
-    from driving_dirty_tpu_torch.parallel.collectives import GRAD_REDUCE
+    from driving_dirty_tpu_torch.parallel.collectives import GRAD_REDUCE, TP_COMM, TP_KINDS, reset_tp_comm
     from driving_dirty_tpu_torch.train.trainer import Trainer
 
     device = mesh_lib.current_device() or resolve_device(spec.get("device"))
@@ -154,6 +156,7 @@ def fit_worker(spec: dict) -> dict:
     trainer = Trainer(num_devices=world, model_parallel=spec.get("model_parallel", 1), device=device,
                       **spec.get("trainer", {}))
     GRAD_REDUCE.update(calls=0, bytes=0, ms=[], timed=bool(spec.get("time_reduce")))
+    reset_tp_comm(timed=bool(spec.get("time_reduce")))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -167,6 +170,7 @@ def fit_worker(spec: dict) -> dict:
            "stop_reason": result.stop_reason, "scenes_per_sec": result.scenes_per_sec,
            "launches": {k: after[k] - before[k] for k in after}, "fit_s": fit_s,
            "grad_reduce": {k: GRAD_REDUCE[k] for k in ("calls", "bytes", "ms")},
+           "tp_comm": {k: dict(TP_COMM[k]) for k in TP_KINDS},
            "shard_shapes": trainer.shard_shapes,
            "rank": (mesh.rank, mesh.dp_rank, mesh.tp_rank) if mesh is not None else (0, 0, 0),
            "backend": mesh.backend if mesh is not None else None}

@@ -15,7 +15,9 @@ as the JAX package reshapes its device list):
   * `param_shardings(mesh, model, rules)`: the task's sharding rules, written
     on the JAX layouts and paths as the JAX package writes them, as
     {parameter name: None (replicated) or (dim, "model")} on this package's
-    layouts; `shard_module` cuts the parameters to this rank's shard.
+    layouts (a JAX HWIO conv weight's output dimension, 3, lands on dim 0 of
+    an OIHW Conv2d weight and dim 1 of a ConvTranspose2d's [in, out, kh,
+    kw]); `shard_module` cuts the parameters to this rank's shard.
 
 Backend: NCCL where every rank has a card of its own; gloo on the CPU, and
 gloo where the caller named one card for every rank (`--device cuda:K`),
@@ -272,14 +274,23 @@ def local_shard(mesh: Mesh, t: torch.Tensor, sharding) -> torch.Tensor:
     return t.narrow(dim, mesh.tp_rank * k, k).contiguous()
 
 
+def _out_dim(mod) -> int:
+    """The output-channel dimension of a conv layer's weight: 0 of a
+    Conv2d's OIHW, 1 of a ConvTranspose2d's [in, out, kh, kw]."""
+    from driving_dirty_tpu_torch.core.layers import ConvTranspose2d
+
+    return 1 if isinstance(mod, ConvTranspose2d) else 0
+
+
 def shard_module(model, mesh: Mesh, specs: dict) -> None:
     """Cut `model`'s sharded parameters to this rank's blocks, and set each
-    Linear layer that holds one to run column-parallel (weight cut on its
-    output dimension, with its bias) or row-parallel (cut on its input
-    dimension; the bias stays whole). Other sharded layers are not
-    supported."""
+    layer that holds one to run tensor-parallel: a Linear layer
+    column-parallel (weight cut on its output dimension, with its bias) or
+    row-parallel (cut on its input dimension; the bias stays whole), a
+    Conv2d or ConvTranspose2d column-parallel (weight and bias cut on the
+    output channels). Other sharded layers or cuts are not supported."""
     from driving_dirty_tpu_torch.checkpoints.convert import shard_params
-    from driving_dirty_tpu_torch.core.layers import Linear
+    from driving_dirty_tpu_torch.core.layers import Conv2d, ConvTranspose2d, Linear
 
     sharded = {n for n, s in specs.items() if s is not None}
     for path, mod in model.named_modules():
@@ -288,17 +299,19 @@ def shard_module(model, mesh: Mesh, specs: dict) -> None:
         if not mine:
             continue
         prefix = f"{path}." if path else ""
-        if not isinstance(mod, Linear):
-            raise NotImplementedError(f"{sorted(mine)}: only Linear layers shard over 'model' here")
+        if not isinstance(mod, (Linear, Conv2d, ConvTranspose2d)):
+            raise NotImplementedError(f"{sorted(mine)}: only Linear and conv layers shard over 'model' here")
         wdim = specs[prefix + "weight"][0] if prefix + "weight" in mine else None
         bias = prefix + "bias" in mine
-        if wdim == 0 and bias:
+        out = 0 if isinstance(mod, Linear) else _out_dim(mod)
+        if wdim == out and bias:
             mod.tp = ("column", mesh)
-        elif wdim == 1 and not bias:
+        elif isinstance(mod, Linear) and wdim == 1 and not bias:
             mod.tp = ("row", mesh)
         else:
             raise NotImplementedError(f"{path}: weight on dim {wdim} with the bias "
-                                      f"{'cut' if bias else 'whole'} is neither column- nor row-parallel")
+                                      f"{'cut' if bias else 'whole'} is not a parallel "
+                                      f"{type(mod).__name__} this package runs")
         names = [k for k in ("weight", "bias") if prefix + k in mine]
         cut = shard_params({k: getattr(mod, k).detach() for k in names}, mesh,
                            {k: specs[prefix + k] for k in names})
@@ -308,14 +321,13 @@ def shard_module(model, mesh: Mesh, specs: dict) -> None:
 
 def unshard_module(model, mesh: Mesh, specs: dict) -> None:
     """The inverse of `shard_module`: every rank gets the whole parameters
-    back (gathered over 'model') and the Linear layers run whole again."""
+    back (gathered over 'model') and the layers run whole again."""
     from driving_dirty_tpu_torch.checkpoints.convert import gather_params
-    from driving_dirty_tpu_torch.core.layers import Linear
 
     params = dict(model.named_parameters())
     whole = gather_params({n: p.detach() for n, p in params.items()}, mesh, specs)
     for path, mod in model.named_modules():
-        if not isinstance(mod, Linear) or getattr(mod, "tp", None) is None:
+        if getattr(mod, "tp", None) is None:
             continue
         prefix = f"{path}." if path else ""
         for k in ("weight", "bias"):

@@ -35,9 +35,12 @@ Under a mesh (train/trainer.py) `reduce_grads` sums the gradients over the
 data ranks once an update is due (every micro-batch, or the accumulated
 mean at the window's end: the sum is linear; until then each data rank's
 `acc` is its share, which the trainer sums for a checkpoint), and `tp` = (mesh, names of
-the 'model'-sharded parameters) makes the clipping norm global: the
-shards' squared norms are summed over 'model', the replicated leaves
-counted once. The moments and accumulators of a sharded parameter are its
+the 'model'-sharded parameters) averages the replicated parameters'
+gradients over 'model' after that sum (collectives.py:mean_over_model: the
+ranks' copies get one gradient, so they stay equal where the card's
+algorithms round differently on each rank) and makes the clipping norm
+global: the shards' squared norms are summed over 'model', the replicated
+leaves counted once. The moments and accumulators of a sharded parameter are its
 shard's; which parameters' moments are nonzero is agreed over 'model'
 when they are loaded, so every rank of a 'model' group takes the same
 update path.
@@ -96,8 +99,14 @@ class Adam:
         return {n for n, f in zip(names, flags.tolist()) if f}
 
     def _reduce(self, grads: dict):
+        names = sorted(grads)  # the same order on every rank
         if self.reduce_grads is not None:
-            self.reduce_grads([grads[n] for n in sorted(grads)])  # the same order on every rank
+            self.reduce_grads([grads[n] for n in names])
+        if self.tp is not None:
+            from driving_dirty_tpu_torch.parallel.collectives import mean_over_model
+
+            mesh, sharded = self.tp
+            mean_over_model([grads[n] for n in names if n not in sharded], mesh)
 
     @torch.no_grad()
     def step(self) -> bool:

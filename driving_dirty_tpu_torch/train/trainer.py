@@ -56,7 +56,7 @@ keeps the last and the best checkpoint, and resumes exactly.
     accumulation, each data rank holds its share of the window's
     accumulated gradient: a checkpoint sums the shares, and a resume under
     'data' gives each rank the whole over the number of data ranks. The task's `param_sharding_rules` cut
-    its Linear layers over 'model' after any resume (the moments with
+    its Linear and conv layers over 'model' after any resume (the moments with
     them) and are gathered back before fit returns. Stops and debug_nans
     agree across ranks (a flag reduced with MAX each step). Validation
     gives each data rank whole batches (batch i to rank i mod data) and
@@ -520,7 +520,7 @@ class Trainer:
         opt = Adam(task.named_parameters(), task.learning_rate(),
                    clip=self.gradient_clip_val, every_k=self.accumulate_grad_batches,
                    reduce_grads=partial(all_reduce_grads, group=mesh.dp_group) if dp > 1 else None,
-                   tp=(mesh, frozenset(specs)) if specs else None)
+                   tp=(mesh, frozenset(specs)) if mesh is not None and mesh.model > 1 else None)
         if opt_leaves is not None:
             ckpt_io.restore_opt_state(opt, layouts, opt_leaves,
                                       shard=(lambda t: shard_params(t, mesh, specs)) if specs else None)

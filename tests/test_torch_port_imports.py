@@ -4,6 +4,8 @@ or the JAX package (driving_dirty_tpu), not even a JAX-free module of it.
 A fresh process imports every module of the port (pkgutil.walk_packages)
 and then lists what of `jax`, `jaxlib` and `driving_dirty_tpu` is in
 sys.modules: it must be nothing. No tolerance: the list must be empty.
+Nor may any module import matplotlib on import (utils/viz.py imports it
+inside its functions), which the H100 machine does not have.
 """
 from test_torch_threads import torch_worker_threads  # noqa: F401  (torch threads of a test worker)
 
@@ -23,7 +25,7 @@ for name in names:
     importlib.import_module(name)
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "driving_dirty_tpu"))
-print(json.dumps({"imported": names, "banned": banned}))
+print(json.dumps({"imported": names, "banned": banned, "matplotlib": "matplotlib" in sys.modules}))
 """
 
 
@@ -38,5 +40,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert "driving_dirty_tpu_torch.cli.serve" in out["imported"]
     for name in ("mesh", "collectives", "launch"):  # multi-device training
         assert f"driving_dirty_tpu_torch.parallel.{name}" in out["imported"]
+    for name in ("cli.hyperopt", "cli.submit", "utils.viz", "utils.raster_pil"):  # orchestration and plots
+        assert f"driving_dirty_tpu_torch.{name}" in out["imported"]
+    assert out["matplotlib"] is False
     assert len(out["imported"]) > 50
     assert out["banned"] == []

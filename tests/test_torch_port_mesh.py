@@ -26,13 +26,17 @@
   * (ii) a Linear layer cut column-parallel and row-parallel over tp=2
     (parallel/mesh.py:shard_module): output, input gradient and the
     gathered weight gradient against the whole layer, rtol 1e-5; the
-    roadmap and multitask rules map to the port's layouts;
+    roadmap, multitask, spatial_bb and spatial_rm rules map to the port's
+    layouts (a spatial head's conv weight cut on dim 0, its transposed conv
+    weight on dim 1, their biases, the 1-channel last stage whole);
   * (vii) two "nodes" joined through DD_COORDINATOR_ADDRESS /
     DD_NUM_PROCESSES / DD_PROCESS_ID, as tests/test_multihost.py runs the
     JAX package: each takes its rows of a global batch and a sum over both
     gives the global sum;
-  * (viii) spatial_bb under model_parallel 2 raises, and a preemption
-    signal on one rank stops every rank at the same step with a checkpoint.
+  * (viii) spatial_bb trains under model_parallel 2 (its heads
+    channel-parallel) for max_steps 2 and writes the one-process
+    checkpoint; and a preemption signal on one rank stops every rank at
+    the same step with a checkpoint.
 
 Ranks are processes started by parallel/launch.py:spawn with one torch
 thread each; they meet through a file in the test's temporary directory.
@@ -61,7 +65,7 @@ from driving_dirty_tpu_torch.models.bb_mlp import Boxes
 from driving_dirty_tpu_torch.models.faster_rcnn import FasterRCNNRoadMap
 from driving_dirty_tpu_torch.models.multitask import MultiTask
 from driving_dirty_tpu_torch.models.roadmap import RoadMap, RoadMapBCEv2
-from driving_dirty_tpu_torch.models.spatial_bb import BBSpatialModel
+from driving_dirty_tpu_torch.models.spatial_bb import BBSpatialModel, BBSpatialRoadMap
 from driving_dirty_tpu_torch.ops.coords import aabb_to_corners
 from driving_dirty_tpu_torch.parallel import collectives as C
 from driving_dirty_tpu_torch.parallel import launch
@@ -341,11 +345,12 @@ def tp_rank(root):
     mesh = mesh_lib.build_mesh(model_parallel=2)
     out = {mode: parallel_linear(mode, mesh) for mode in ("column", "row")}
     spatial = BBSpatialModel(SMALL, device="cpu", generator=torch.Generator().manual_seed(0))
-    try:
-        Trainer(num_devices=2, model_parallel=2, device="cpu", enable_progress_bar=False,
-                default_root_dir=os.path.join(root, "spatial")).fit(spatial)
-    except NotImplementedError as e:
-        out["spatial"] = str(e)
+    batch = cases()[3][3]
+    spatial.train_loader = lambda: MemoryLoader([batch] * 3)
+    trainer = Trainer(num_devices=2, model_parallel=2, max_steps=2, limit_val_batches=0, device="cpu",
+                      enable_progress_bar=False, default_root_dir=os.path.join(root, "spatial"))
+    r = trainer.fit(spatial)
+    out["spatial"] = (r.stop_reason, r.last_ckpt_path, trainer.shard_shapes)
     r = Trainer(num_devices=2, max_epochs=3, device="cpu", enable_progress_bar=False,
                 default_root_dir=os.path.join(root, "stop")).fit(StopToy())
     out["stop"] = (r.stop_reason, r.last_ckpt_path)
@@ -360,21 +365,46 @@ def test_parallel_linear_matches_the_whole_layer(tp_runs, mode):
             np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-6, err_msg=f"{mode} {name}")
 
 
-@pytest.mark.parametrize("cls", [RoadMapBCEv2, MultiTask])
+def spatial_specs(rm: bool) -> dict:
+    """The cuts of the JAX rules on a spatial head's port layouts: every conv
+    with 8k output channels on dim 0 (OIHW), every transposed conv on dim 1
+    ([in, out, kh, kw]), their biases on dim 0; the last stage whole."""
+    convs = [f"space_map_cnn.{v}_conv" for v in ("fl", "fr", "bl", "br", "f", "b", "out")] + ["box_merge.ss_conv"]
+    convs += ["box_merge.rm_conv_1", "box_merge.rm_conv_2"] if rm else []
+    convts = ["box_merge.ss_deconv"] + [f"box_merge.up_conv_{i}" for i in range(1, 5 if rm else 4)]
+    specs = {f"{m}.weight": (0, "model") for m in convs} | {f"{m}.weight": (1, "model") for m in convts}
+    return specs | {f"{m}.bias": (0, "model") for m in convs + convts}
+
+
+@pytest.mark.parametrize("cls", [RoadMapBCEv2, MultiTask, BBSpatialModel, BBSpatialRoadMap])
 def test_the_jax_rules_land_on_the_port_layouts(cls):
     hparams = ROAD if cls is RoadMapBCEv2 else SMALL
     task = cls(hparams, device="cpu", generator=torch.Generator().manual_seed(0))
     specs = mesh_lib.param_shardings(types.SimpleNamespace(model=2), task, task.param_sharding_rules)
+    if cls in (BBSpatialModel, BBSpatialRoadMap):
+        assert {n: s for n, s in specs.items() if s} == spatial_specs(cls is BBSpatialRoadMap)
+        return
     head = "fc1" if cls is RoadMapBCEv2 else "rm_head"
     assert {n: s for n, s in specs.items() if s} == {f"{head}.weight": (0, "model"), f"{head}.bias": (0, "model"),
                                                      "encoder.fc1.fc.weight": (1, "model")}
 
 
 def test_spatial_tensor_parallelism_raises_and_one_ranks_signal_stops_all(tp_runs):
+    """spatial_bb on tp=2 (which raised before its heads ran channel-parallel)
+    stops at max_steps 2 with the one-process checkpoint: its shards are
+    half the output channels a rank, the file holds the whole weights."""
     for rank in tp_runs:
-        assert "A.12c-2" in rank["spatial"]
+        reason, last_spatial, shapes = rank["spatial"]
+        assert reason == "max_steps=2 reached"
+        assert sorted(shapes) == sorted(spatial_specs(rm=False))
+        assert shapes["box_merge.up_conv_1.weight"] == [64, 16, 3, 3]
+        assert shapes["space_map_cnn.fl_conv.weight"] == [16, 3, 1, 14]
         reason, last = rank["stop"]
         assert reason == "preemption signal"
+    blob = ckpt_io.load(last_spatial)
+    assert blob["meta"]["global_step"] == 2
+    assert blob["params"]["box_merge"]["up_conv_1"]["w"].shape == (3, 3, 64, 32)
+    assert blob["params"]["space_map_cnn"]["fl_conv"]["b"].shape == (32,)
     meta = ckpt_io.load(last)["meta"]
     assert (meta["global_step"], meta["mid_epoch"], meta["batch_in_epoch"]) == (2, True, 2)
 

@@ -1,6 +1,7 @@
 """driving_dirty_tpu_torch on dp=2 x tp=2 against the JAX Trainer on
 `build_mesh(4, 2)` of the conftest's 8 virtual devices, on the CPU:
-roadmap_bce here, multitask in tests/test_torch_port_mesh_multitask.py.
+roadmap_bce here, multitask in tests/test_torch_port_mesh_multitask.py,
+spatial_rm and spatial_bb in tests/test_torch_port_spatial_tp_jax*.py.
 
 The JAX task initializes from PRNGKey(0); its weights go into a JAX
 single-device checkpoint (step 0, no optimizer state) that both trainers
@@ -18,11 +19,12 @@ Under jit, XLA:CPU makes the JAX package's rasterizer
 (ops/maps.py:boxes_to_binary_map) fill the whole map for a valid point box
 (ROADMAP.md §C, a fault of the JAX package found in PR 2), and
 data/boxes.py:box_scenes holds such boxes: the JAX Trainer's jitted step
-would train multitask on maps of all ones. Its eager call gives the true
-maps, which the port's B2 equals exactly (tests/test_torch_port_raster.py).
-So for multitask the test hands the JAX task its eager targets with the
-batch (`_box_targets` reads them): the JAX package is not changed, and
-both sides train on the true targets.
+would train multitask (and spatial_bb, spatial_rm) on maps of all ones.
+Its eager call gives the true maps, which the port's B2 equals exactly
+(tests/test_torch_port_raster.py). So for the box tasks the test hands
+the JAX task its eager targets with the batch (`_box_targets`, or the
+spatial tasks' `_targets`, reads them): the JAX package is not changed,
+and both sides train on the true targets.
 
 Tolerances: each step's train_loss and the validation's val_loss rtol 1e-4
 (XLA and ATen, and the two meshes, sum in other orders); the parameters
@@ -47,12 +49,15 @@ import pytest
 from driving_dirty_tpu.checkpoints import io as jax_io
 from driving_dirty_tpu.models.multitask import MultiTask as JMultiTask
 from driving_dirty_tpu.models.roadmap import RoadMapBCEv2 as JRoadMap
+from driving_dirty_tpu.models.spatial_bb import BBSpatialModel as JSpatialBB
+from driving_dirty_tpu.models.spatial_bb import BBSpatialRoadMap as JSpatialRM
 from driving_dirty_tpu.parallel import mesh as jax_mesh
 from driving_dirty_tpu.train.trainer import Trainer as JTrainer
 from driving_dirty_tpu_torch.checkpoints import io as ckpt_io
 from driving_dirty_tpu_torch.data.boxes import box_scenes
 from driving_dirty_tpu_torch.models.multitask import MultiTask
 from driving_dirty_tpu_torch.models.roadmap import RoadMapBCEv2
+from driving_dirty_tpu_torch.models.spatial_bb import BBSpatialModel, BBSpatialRoadMap
 from driving_dirty_tpu_torch.parallel import launch
 
 LOSS_RTOL = 1e-4
@@ -71,6 +76,12 @@ TASKS = {
                        pretrained_path=None, batch_size=B, learning_rate=LR, spatial_geometry="small"),
                   ("encoder/", "rm_head/")),
 }
+SPATIAL = dict(ae_hidden_dim=16, ae_latent_dim=8, ae_input_height=64, ae_input_width=6 * 78, pretrained_path=None,
+               batch_size=B, learning_rate=LR, spatial_geometry="small")
+TASKS["spatial_bb"] = (JSpatialBB, BBSpatialModel, SPATIAL, ())  # no BatchNorm; the encoder stays frozen
+TASKS["spatial_rm"] = (JSpatialRM, BBSpatialRoadMap, SPATIAL, ())
+TARGETS = {"multitask": "_box_targets", "spatial_bb": "_targets", "spatial_rm": "_targets"}  # JAX box targets
+ROAD = {"spatial_rm": 152}  # the road input's side at the "small" geometry (its raster size)
 
 
 class InMemLoader:
@@ -87,9 +98,10 @@ def batches(name, n):
     views = (32, 306) if name == "roadmap_bce" else (64, 78)
     out = []
     for i in range(n):
+        road = ROAD.get(name, 800)
         b = {"images": rng.randint(0, 256, (B, 6, *views, 3)).astype(np.uint8),
-             "road": (rng.rand(B, 800, 800) > 0.5).astype(np.float32)}
-        if name == "multitask":
+             "road": (rng.rand(B, road, road) > 0.5).astype(np.float32)}
+        if name in TARGETS:
             b["boxes"], b["box_valid"] = box_scenes(10 + i, B, 100)
         out.append(b)
     return out
@@ -122,10 +134,10 @@ def run_both(name, root):
     task = jcls(hparams)
     task.ae.encoder = dataclasses.replace(task.ae.encoder, drop_p=0.0)
     jax_train, jax_val = train, val
-    if name == "multitask":  # the eager targets (see the module docstring)
-        eager = task._box_targets
+    if name in TARGETS:  # the eager targets (see the module docstring)
+        eager = getattr(task, TARGETS[name])
         jax_train, jax_val = ([dict(b, box_targets=np.asarray(eager(b))) for b in bs] for bs in (train, val))
-        task._box_targets = lambda batch: batch["box_targets"]
+        setattr(task, TARGETS[name], lambda batch: batch["box_targets"])
     params, state = task.init(jax.random.PRNGKey(0))
     start = os.path.join(root, "start.ckpt")
     jax_io.save(start, params=params, state=state, hparams=hparams,

@@ -2,8 +2,8 @@
 tests/test_trainer_safety.py (the task-level link never replaces a regular
 file, resume pruning, the checkpoint writer's hook after the write and its
 errors), the stops (max_steps, walltime) and their resumable checkpoint,
-profile_dir and cost_flops, debug_nans, what a mesh refuses (spatial_bb's
-tensor parallelism, a global batch that does not divide over the data
+profile_dir and cost_flops, debug_nans, what a mesh refuses (a spatial_bb
+head conv cut on its input channels, a global batch that does not divide over the data
 ranks), and validation over a padded final
 batch: its weighted mean over the valid rows equals the mean over the whole
 set to float rounding (rtol 1e-6), and the host hook's (value, weight)
@@ -121,11 +121,16 @@ def test_debug_nans_raises_on_a_non_finite_loss(tmp_path):
 
 def refused_fit(case, root):
     """A rank's fit that the trainer refuses -> the error's type and text:
-    spatial_bb on a 'model' axis, or a global batch of 3 over 2 data ranks."""
+    spatial_bb with a head conv cut on its input channels over 'model'
+    (conv layers run column-parallel only), or a global batch of 3 over 2
+    data ranks."""
     if case == "spatial_tp":
         task = BBSpatialModel(dict(ae_hidden_dim=8, ae_latent_dim=8, ae_input_height=64, ae_input_width=6 * 78,
                                    pretrained_path=None, spatial_geometry="small"),
                               device="cpu", generator=torch.Generator().manual_seed(0))
+        # ss_conv's HWIO weight cut on its input channels (dim 2)
+        task.param_sharding_rules = lambda path, leaf: (
+            (None, None, "model", None) if path == ("box_merge", "ss_conv", "w") else None)
         trainer = Trainer(num_devices=2, model_parallel=2, device="cpu", default_root_dir=root,
                           enable_progress_bar=False)
     else:
@@ -142,13 +147,15 @@ def refused_fit(case, root):
 @pytest.mark.parametrize("case", ["spatial_tp", "indivisible_batch"])
 def test_multi_device_arguments_raise(case, tmp_path, monkeypatch):
     """What the mesh refuses, on every rank of a 2-rank world (parallel/
-    launch.py): spatial_bb's channel tensor parallelism is not ported
-    (ROADMAP A.12c-2), and a training global batch that does not divide
+    launch.py): a spatial head's conv cut on its input channels (the
+    heads' convs run column-parallel, cut on their output channels, as the
+    JAX rules cut them), and a training global batch that does not divide
     over the data ranks raises, as the JAX package's device_put would."""
     monkeypatch.setenv("DD_NO_COST_ANALYSIS", "1")
     got = launch.spawn(refused_fit, 2, (case, str(tmp_path)), device="cpu", threads=1,
                        init_method=f"file://{tmp_path}/rdzv")
-    want = ("NotImplementedError", "A.12c-2") if case == "spatial_tp" else ("ValueError", "does not divide over 2")
+    want = (("NotImplementedError", "box_merge.ss_conv: weight on dim 1 with the bias whole is not a parallel Conv2d")
+            if case == "spatial_tp" else ("ValueError", "does not divide over 2"))
     for kind, text in got:
         assert kind == want[0] and want[1] in text, (kind, text)
 
