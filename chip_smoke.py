@@ -120,17 +120,28 @@
    objectness signs) in agreement with the same model at precision 16 on
    the warm-up batch. Scenes/s, ms/request, device busy and idle share
    beside the precision-16 windows.
-8. Training phase, precision 32, batches of 8 seeded uint8 scenes: the
-   trunk under autograd (kernel forward, plain backward) at
-   [8, 256, 1836, 3] against autograd through the plain trunk for x and the
-   six parameters; then 5 Adam steps of a full-width BasicAE (hidden 128,
+8. Training phase, precision 32, batches of 8 seeded uint8 scenes. First
+   the trunk's training kernels at [8, 256, 1836, 3] and [8, 800, 800, 3]
+   in f32 and bf16: B1-save's c1, c2 and c3 against trunk_stages (TOL),
+   B1-bwd against trunk_bwd_plain on the same saved tensors for all seven
+   gradients (BWD_TOL), bit-equal over two launches, and the times of
+   B1-save, B1-bwd, their plain versions and the library calls (cuDNN's
+   conv chain; its three convolution_backward calls) by CUDA events beside
+   the bounds; then the trunk under autograd at [8, 256, 1836, 3] f32
+   (B1-save forward, B1-bwd backward: one launch each, no plain version on
+   the card) against autograd through the plain trunk for x and the six
+   parameters, with the count of c1 / c2 / c3 elements whose sign differs
+   between the two forwards, and both forward + backward timed; then 5 Adam
+   steps of a full-width BasicAE (hidden 128,
    latent 64) six-to-one pretraining and 3 steps of RoadMapBCEv2 over its
    frozen encoder (loaded from the BasicAE checkpoint), each from one init
    against the same steps with the plain kernels (same views and dropout
    masks from one seeded generator): loss trajectories within stated
-   tolerances, B1 launched once a step (the backward launches none), the
-   kernel weights laid out once a step (once in all for the frozen
-   encoder), the frozen encoder's parameters bit-identical; ms per step,
+   tolerances, B1 launched once a step and B1-bwd once an unfrozen step
+   (never for the frozen encoder), the kernel weights and B1-bwd's dgrad
+   weights laid out once a step (the forward's once in all and the
+   backward's never for the frozen encoder), the frozen encoder's
+   parameters bit-identical; ms per step,
    scenes/s, device idle share (steps 1.. under torch.profiler) and peak
    device memory.
 8b. Box-training phase, precision 32, batch 8: spatial_bb, spatial_rm,
@@ -138,10 +149,11 @@
    geometry, max_bb 100, seeded box scenes from data/boxes.py), each from
    one init: 3 Adam steps (train/optim.py:Adam, the trainer's) with the
    freeze mask of epoch 0 (encoder frozen), then 2 with the mask of epoch 20
-   (everything trains, B1's gradient through its op's backward), against the
+   (everything trains, B1's gradient through B1-bwd), against the
    same steps with the plain trunk and rasterizer patched in (the same
    dropout draws from one seeded generator): loss trajectories within
    LOSS_TOL, the B2 targets equal to the plain rasterizer's, B1 once a step
+   (B1-bwd once an unfrozen step)
    and B2 once a step (never for bb_mlp), one kernel-weight layout for the
    frozen steps and one after each update once the encoder trains, the
    encoder bit-identical while frozen; ms per step, and for each stage
@@ -158,13 +170,15 @@
    freeze mask of epoch 0 and 2 with that of epoch 10, against the same
    steps with the plain kernels (the samplers' noise from one seeded
    generator): losses after the first within LOSS_TOL, B1 and B3 once a
-   step, B3-bwd once a step for faster_rcnn_rm and once an unfrozen step
-   for faster_rcnn, one kernel-weight layout while frozen and one after
-   each update once the encoder trains, the encoder bit-identical while
+   step, B3-bwd and B1-bwd once a step for faster_rcnn_rm (its
+   mapper_cnn trains from step 0, so the trunk's input asks for a
+   gradient) and once an unfrozen step for faster_rcnn, one
+   kernel-weight layout while frozen and one after each update once the
+   encoder trains, the encoder bit-identical while
    frozen; ms a step, scenes/s, idle share, the device and aten
    operations that take the most time, NMS host checks a step, peak
-   memory; then each stage of a faster_rcnn_rm step alone (B1, its
-   backward, the RPN convs, matching, sampling, proposals with NMS, B3,
+   memory; then each stage of a faster_rcnn_rm step alone (B1, B1-save
+   with B1-bwd, the RPN convs, matching, sampling, proposals with NMS, B3,
    B3-bwd, the box MLP): its device time under torch.profiler and its
    time on the stream by CUDA events.
 9. Trainer phase, the main-path CLIs at the width of step 8 (batch 8,
@@ -319,8 +333,9 @@ from driving_dirty_tpu_torch.kernels import roialign as roialign_module
 from driving_dirty_tpu_torch.kernels.roialign import (channels_per_thread, grad_channels_per_load, roialign,
                                                       roialign_backward, roialign_backward_plain, roialign_plain,
                                                       sample_coords)
-from driving_dirty_tpu_torch.kernels.trunk import (VARIANT_STAGES, out_hw, prepare_weights, trunk,
-                                                   trunk_plain, trunk_variant, trunk_variant_plain)
+from driving_dirty_tpu_torch.kernels.trunk import (VARIANT_STAGES, out_hw, prepare_bwd_weights, prepare_weights,
+                                                   trunk, trunk_bwd, trunk_bwd_plain, trunk_plain, trunk_stages,
+                                                   trunk_train_op, trunk_variant, trunk_variant_plain)
 from driving_dirty_tpu_torch.kernels.trunk_int8 import (prepare_int8_weights, trunk_int8,
                                                         trunk_int8_plain, trunk_int8_variant,
                                                         trunk_int8_variant_plain)
@@ -514,11 +529,27 @@ AE_HPARAMS = dict(hidden_dim=HPARAMS["ae_hidden_dim"], latent_dim=HPARAMS["ae_la
                   batch_size=BATCH)
 AE_STEPS, RM_STEPS = 5, 3
 LR = 1e-3
-# The trunk's gradients under autograd (kernel forward, plain backward)
-# against autograd through the plain trunk, for one cotangent, max |error| <=
-# GRAD_TOL * max|plain|: both run the same backward on the same inputs;
-# only cuDNN's reduction order (sums of up to 3.7M terms) can differ.
+# The trunk's gradients under autograd (B1-save forward, B1-bwd backward)
+# against autograd through the plain trunk, for one cotangent, max |error|
+# <= GRAD_TOL * max|plain|, held where no c1 / c2 / c3 element's sign
+# differs between the two forwards: the split-TF32 products and the f32
+# sums in another order than cuDNN's (sums of up to 3.7M terms) stay within
+# a few 1e-6; an element within the forward's rounding of 0 that one
+# forward keeps and the other zeroes changes its mask, and so a whole term
+# of dx nearby and of a weight gradient (one of 1e3 .. 1e6 terms that
+# cancel to about sqrt(n) of one), so where signs differ the errors are
+# printed with the count, not held (B1-bwd's own bar is BWD_TOL below).
 GRAD_TOL = 1e-4
+# B1-bwd against trunk_bwd_plain on the same saved tensors (the same masks),
+# max |error| <= BWD_TOL * max|plain| per gradient: f32 GRAD_TOL (split-TF32
+# products and f32 sums in another order than cuDNN's f32 backward, sums of
+# up to 3.7M terms: within 1e-5 of the largest entry at both main-path
+# shapes in this script's runs); bf16 2^-6 (both round gz2, gz1, dx and the weight
+# gradients to bf16 at the same points, from f32 sums in another order: a
+# few bf16 ulps of the largest value).
+BWD_TOL = {torch.float32: GRAD_TOL, torch.bfloat16: 2.0 ** -6}
+TRAIN_NEEDS = (False,) + (True,) * 6  # an unfrozen encoder's gradients: x asks for none
+BWD_NAMES = ("x", "w1", "b1", "w2", "b2", "w3", "b3")
 # Losses of the kernel run against the plain-kernel run from one init, with
 # the same masked views and dropout masks: the first step's loss (no update
 # yet) differs only by the trunk's split-TF32 forward, a few 1e-6 of c3:
@@ -640,11 +671,28 @@ def conv_bound(macs: int, nbytes: int, dtype) -> dict:
     return rec
 
 
-def trunk_bound(x) -> dict:
+def trunk_bound(x, save: bool = False) -> dict:
+    """B1's least time; with save, B1-save's: c1 and c2 also written once."""
     b, h, w, _ = x.shape
     ho, wo = out_hw(h, w)
     macs = b * (h * w * 32 * 27 + h * w * 32 * 288 + ho * wo * 32 * 288)
-    nbytes = (x.numel() + b * ho * wo * 32) * x.element_size() + 4 * (2 * 32 * 32 * 9 + 32 * 27 + 96)
+    nbytes = ((x.numel() + b * ho * wo * 32 + 2 * save * b * h * w * 32) * x.element_size()
+              + 4 * (2 * 32 * 32 * 9 + 32 * 27 + 96))
+    return conv_bound(macs, nbytes, x.dtype)
+
+
+def trunk_bwd_bound(x, needs) -> dict:
+    """B1-bwd's least time for the gradients `needs` asks for (training:
+    the six parameters): the products of dW3 and c3's dgrad, of dW2 and c2's
+    dgrad, of dW1 and (where asked) dx; the bytes of g3, c3, c2, c1 and x
+    read once, the weight gradients (f32) and dx written once."""
+    b, h, w, _ = x.shape
+    ho, wo = out_hw(h, w)
+    n1, n3 = b * h * w, b * ho * wo
+    dx = bool(needs[0])
+    macs = 2 * n3 * 32 * 288 + 2 * n1 * 32 * 288 + n1 * 32 * 27 * (1 + dx)
+    nbytes = ((2 * n3 * 32 + 2 * n1 * 32 + x.numel() * (1 + dx)) * x.element_size()
+              + 4 * (2 * 32 * 32 * 9 + 32 * 27 + 96))
     return conv_bound(macs, nbytes, x.dtype)
 
 
@@ -959,25 +1007,28 @@ def device_us(event) -> float:
     return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
 
 
-def kernel_device_ms(fn, kernels: tuple[str, ...], calls: int = 50) -> dict:
+def kernel_device_ms(fn, kernels: tuple[str, ...], calls: int = 50, tries: int = 3) -> dict:
     """Mean device time per call of fn() of each of `kernels` (every kernel
     fn launches, by name), from torch.profiler over `calls` calls after a
-    warm-up -> {name: ms, ..., "total": ms}. Raises if one is missing."""
+    warm-up -> {name: ms, ..., "total": ms}. A window that misses one is
+    taken again (see device_ms_per_call), up to `tries` in all; raises if
+    every window misses one."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    out = {}
-    for kernel in kernels:
-        us = sum(device_us(e) for e in events if kernel in e.key)
-        if not us:
-            raise RuntimeError(f"the profiler traced no {kernel} on the device")
-        out[kernel] = us / 1e3 / calls
-    out["total"] = sum(out.values())
-    return out
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        out = {kernel: sum(device_us(e) for e in events if kernel in e.key) / 1e3 / calls for kernel in kernels}
+        missing = [kernel for kernel, ms in out.items() if not ms]
+        if not missing:
+            if attempt:
+                print(f"kernel_device_ms: {attempt} profiler window(s) missed a kernel before this one", flush=True)
+            out["total"] = sum(out.values())
+            return out
+    raise RuntimeError(f"the profiler traced no {missing[0]} on the device in {tries} windows")
 
 
 def tf32_line(label: str) -> None:
@@ -1181,15 +1232,16 @@ def plain_kernels():
 
 def reset_launches() -> None:
     trunk.launches = trunk_int8.launches = raster.launches = roialign.launches = 0
-    roialign_backward.launches = 0
+    roialign_backward.launches = trunk_bwd.launches = trunk.save_launches = 0
 
 
 def expect_launches(what: str, trunks: int, rasters: int, roialigns: int = 0, int8s: int = 0,
-                    roialign_backwards: int = 0) -> dict:
+                    roialign_backwards: int = 0, trunk_bwds: int = 0) -> dict:
     got = {"trunk": trunk.launches, "raster": raster.launches, "roialign": roialign.launches,
-           "trunk_int8": trunk_int8.launches, "roialign_backward": roialign_backward.launches}
+           "trunk_int8": trunk_int8.launches, "roialign_backward": roialign_backward.launches,
+           "trunk_save": trunk.save_launches, "trunk_bwd": trunk_bwd.launches}
     want = {"trunk": trunks, "raster": rasters, "roialign": roialigns, "trunk_int8": int8s,
-            "roialign_backward": roialign_backwards}
+            "roialign_backward": roialign_backwards, "trunk_save": trunk_bwds, "trunk_bwd": trunk_bwds}
     if got != want:
         raise RuntimeError(f"{what}: launches {got}, expected {want}")
     return got
@@ -1873,32 +1925,168 @@ def precision8_phase(tmp: Path, smi: str, p16: dict) -> dict:
     return out
 
 
+def nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def trunk_bwd_library(g3, x, params, c1, c2, c3):
+    """The yardstick of B1-bwd: cuDNN's three convolution_backward calls
+    for training's gradients (no dx) on channels-last views, each on its
+    conv's output gradient, which is computed here first. -> a function
+    that makes the three calls. Timed only; the port never calls it."""
+    aten = torch.ops.aten
+    ws = [w.to(x.dtype) for w in params[0::2]]
+    gz3 = aten.threshold_backward(nchw(g3), nchw(c3), 0)
+    g2 = aten.convolution_backward(gz3, nchw(c2), ws[2], [32], [2, 2], [1, 1], [1, 1], False, [0, 0], 1,
+                                   [True, False, False])[0]
+    gz2 = aten.threshold_backward(g2, nchw(c2), 0)
+    g1 = aten.convolution_backward(gz2, nchw(c1), ws[1], [32], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                                   [True, False, False])[0]
+    gz1 = aten.threshold_backward(g1, nchw(c1), 0)
+    calls = ((gz3, c2, ws[2], 2, [True, True, True]), (gz2, c1, ws[1], 1, [True, True, True]),
+             (gz1, x, ws[0], 1, [False, True, True]))
+
+    def library():
+        for gz, act, w, stride, mask in calls:
+            aten.convolution_backward(gz, nchw(act), w, [32], [stride] * 2, [1, 1], [1, 1], False, [0, 0], 1, mask)
+    return library
+
+
+def sign_flips(saved, plain) -> int:
+    """Elements of c1, c2 and c3 that one forward keeps (> 0) and the other
+    zeroes."""
+    return sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(saved, plain))
+
+
+def trunk_training_kernels(gen) -> list[dict]:
+    """B1-save and B1-bwd at both main-path shapes in f32 and bf16 against
+    their plain versions, timed beside the library and the bounds -> kernel
+    records (their launches on the main path are filled in by main)."""
+    records = []
+    for (path, hw), dtype in [(p, d) for p in (("roadmap", PANO), ("detection", LAYOUT))
+                              for d in (torch.float32, torch.bfloat16)]:
+        x, params = trunk_args(gen, dtype, (BATCH, *hw, 3))
+        g3 = torch.randn((BATCH, *out_hw(*hw), 32), generator=gen, device="cuda").to(dtype)
+        label = f"{str(dtype)[6:]} {list(x.shape)}"
+        with torch.no_grad():
+            c3, c1, c2 = trunk_train_op(x, *params)
+            plain = trunk_stages(x, *params)
+        save_errs = {name: hold(f"B1-save {name} {label}", got, ref, TOL[dtype])
+                     for name, got, ref in zip(("c1", "c2", "c3"), (c1, c2, c3), plain)}
+        flips = sign_flips((c1, c2, c3), plain)
+        del plain
+        bwd_errs = {}
+        for needs in ((True,) * 7, TRAIN_NEEDS):
+            got = trunk_bwd(g3, x, *params, c1, c2, c3, needs)
+            again = trunk_bwd(g3, x, *params, c1, c2, c3, needs)
+            ref = trunk_bwd_plain(g3, x, *params, c1, c2, c3, needs)
+            for name, a, b2, r, need in zip(BWD_NAMES, got, again, ref, needs):
+                if not need:
+                    continue
+                if not torch.equal(a, b2):
+                    raise RuntimeError(f"B1-bwd {name} {label}: two launches gave different gradients")
+                rec = hold(f"B1-bwd {name} {label}{'' if needs[0] else ' (training: no dx)'}, bit-equal over "
+                           f"two launches", a, r, BWD_TOL[dtype])
+                bwd_errs.setdefault(name, rec)
+            del got, again, ref
+        with torch.no_grad():
+            save_ms = cuda_ms(lambda: trunk_train_op(x, *params))
+            stages_ms = cuda_ms(lambda: trunk_stages(x, *params))
+            chain_ms = cuda_ms(lambda: trunk_library(x, *params))
+        bwd_ms = cuda_ms(lambda: trunk_bwd(g3, x, *params, c1, c2, c3, TRAIN_NEEDS))
+        bwd_plain_ms = cuda_ms(lambda: trunk_bwd_plain(g3, x, *params, c1, c2, c3, TRAIN_NEEDS))
+        bwd_library_ms = cuda_ms(trunk_bwd_library(g3, x, params, c1, c2, c3))
+        common = {"route": "cuda", "path": path, "shape": list(x.shape), "dtype": str(dtype)[6:],
+                  "design": TRUNK_DESIGN[dtype]}
+        bound = trunk_bound(x, save=True)
+        records.append({
+            "name": "trunk_save", "source": "driving_dirty_tpu_torch/csrc/trunk.cu",
+            "replaces": "driving_dirty_tpu/pallas/trunk.py:245 (fused_trunk, as _fused_trunk_vjp_fwd runs it)",
+            **common, "max_abs_err": max(r["max_abs_err"] for r in save_errs.values()),
+            "max_abs_err_by_stage": {k: r["max_abs_err"] for k, r in save_errs.items()},
+            "sign_flips": flips, "ms": save_ms, "plain_ms": stages_ms, "library_ms": chain_ms,
+            **bound, "roofline_share": bound["bound_ms"] / save_ms})
+        bound = trunk_bwd_bound(x, TRAIN_NEEDS)
+        records.append({
+            "name": "trunk_bwd", "source": "driving_dirty_tpu_torch/csrc/trunk_bwd.cu",
+            "replaces": "driving_dirty_tpu/pallas/trunk.py:303 (_fused_trunk_vjp_bwd: jax.vjp(xla_trunk))",
+            **common, "design": "mma.sync.m16n8k8 " + ("split TF32" if dtype == torch.float32 else
+                                                       "TF32 on bf16 operands"),
+            "max_abs_err": max(r["max_abs_err"] for r in bwd_errs.values()),
+            "max_abs_err_by_gradient": {k: r["max_abs_err"] for k, r in bwd_errs.items()},
+            "tol_by_gradient": {k: r["tol"] for k, r in bwd_errs.items()},
+            "ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": bwd_library_ms,
+            "needs": "training (w1, b1, w2, b2, w3, b3)", **bound, "roofline_share": bound["bound_ms"] / bwd_ms})
+        print(f"B1-save {label}: {save_ms:.3f} ms, plain (trunk_stages) {stages_ms:.3f} ms, library (cuDNN chain) "
+              f"{chain_ms:.3f} ms, bound {records[-2]['bound_ms']:.3f} ms ({records[-2]['bound_by']}); c1/c2/c3 "
+              f"sign flips against the plain forward {flips}", flush=True)
+        print(f"B1-bwd {label} (training's gradients): {bwd_ms:.3f} ms, plain (trunk_bwd_plain) {bwd_plain_ms:.3f} "
+              f"ms, library (cuDNN's three convolution_backward) {bwd_library_ms:.3f} ms, bound "
+              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), share {bound['bound_ms'] / bwd_ms:.3f}", flush=True)
+        del x, params, g3, c1, c2, c3
+        torch.cuda.empty_cache()
+    return records
+
+
 def trunk_grad_phase(gen) -> dict:
-    """The trunk under autograd at [8, 256, 1836, 3] f32: the kernel forward
-    with the op's plain backward (kernels/trunk.py:trunk_vjp) against autograd through the
-    plain trunk, for x and all six parameters and one seeded cotangent;
-    then both forward + backward timed."""
+    """The trunk's training kernels (trunk_training_kernels), then the trunk
+    under autograd at [8, 256, 1836, 3] f32: B1-save forward and B1-bwd
+    backward (one launch each; trunk_plain and trunk_stages never called
+    on a card tensor, by patched counters) against autograd through the
+    plain trunk, for x and all six parameters and one seeded cotangent, at
+    GRAD_TOL where no c1 / c2 / c3 sign differs between the forwards
+    (printed with the count otherwise); both forward + backward timed, with
+    x's gradient and without (training's)."""
+    records = trunk_training_kernels(gen)
     x, params = trunk_args(gen, torch.float32, (BATCH, *PANO, 3))
     g = torch.randn((BATCH, *out_hw(*PANO), 32), generator=gen, device="cuda")
     a = [t.clone().requires_grad_() for t in (x, *params)]
     b = [t.clone().requires_grad_() for t in (x, *params)]
-    trunk.launches = 0
-    trunk(*a).backward(g)
-    torch.cuda.synchronize()
-    if trunk.launches != 1:
-        raise RuntimeError(f"trunk forward + backward launched the kernel {trunk.launches} times, expected 1")
+    calls = {"trunk_plain": 0, "trunk_stages": 0}
+
+    def on_card(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += any(isinstance(t, torch.Tensor) and t.is_cuda for t in args)
+            return fn(*args, **kwargs)
+        return call
+
+    reset_launches()
+    with mock.patch.object(trunk_module, "trunk_plain", on_card("trunk_plain", trunk_plain)), \
+            mock.patch.object(trunk_module, "trunk_stages", on_card("trunk_stages", trunk_stages)):
+        out = trunk(*a)
+        out.backward(g)
+        torch.cuda.synchronize()
+    expect("trunk forward + backward: B1 (B1-save) and B1-bwd launches, trunk_plain and trunk_stages calls on the "
+           "card", (trunk.launches, trunk.save_launches, trunk_bwd.launches, calls["trunk_plain"],
+                    calls["trunk_stages"]), (1, 1, 1, 0, 0))
+    with torch.no_grad():
+        flips = sign_flips(trunk_train_op(x, *params)[1:] + (out,), trunk_stages(x, *params))
     trunk_plain(*b).backward(g)
     errs = {}
-    for name, s, t in zip(("x", "w1", "b1", "w2", "b2", "w3", "b3"), a, b):
-        errs[name] = hold(f"trunk gradient {name} {list(t.shape)}", s.grad, t.grad, GRAD_TOL)["max_abs_err"]
+    for name, s, t in zip(BWD_NAMES, a, b):
+        what = f"trunk gradient {name} {list(t.shape)} against autograd through the plain trunk"
+        if flips == 0:
+            errs[name] = hold(what, s.grad, t.grad, GRAD_TOL)["max_abs_err"]
+        else:
+            errs[name] = (s.grad - t.grad).abs().max().item()
+            print(f"{what}: max_abs_err {errs[name]:.3e} ({errs[name] / t.grad.abs().max().item():.3e} of "
+                  f"max|plain|), not held: {flips} c1/c2/c3 elements differ in sign between the forwards", flush=True)
+    print(f"trunk under autograd: c1/c2/c3 elements whose sign differs between B1-save and the plain forward: "
+          f"{flips}", flush=True)
     ms = cuda_ms(lambda: trunk(*a).backward(g))
     plain_ms = cuda_ms(lambda: trunk_plain(*b).backward(g))
-    print(f"trunk forward + backward f32 {list(x.shape)}: kernel forward + plain backward {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms", flush=True)
-    return {"grad_max_abs_err": errs, "fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain_ms}
+    a[0].requires_grad_(False)
+    b[0].requires_grad_(False)
+    train_ms = cuda_ms(lambda: trunk(*a).backward(g))
+    train_plain_ms = cuda_ms(lambda: trunk_plain(*b).backward(g))
+    print(f"trunk forward + backward f32 {list(x.shape)}: B1-save + B1-bwd {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"without x's gradient (training) {train_ms:.3f} ms, plain {train_plain_ms:.3f} ms", flush=True)
+    return {"grad_max_abs_err": errs, "sign_flips": flips, "fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain_ms,
+            "train_fwd_bwd_ms": train_ms, "train_plain_fwd_bwd_ms": train_plain_ms, "records": records}
 
 
-def train_run(model, init, batches, steps: int, label: str, smi: str, plain: bool) -> dict:
+def train_run(model, init, batches, steps: int, label: str, smi: str, plain: bool,
+              trains_encoder: bool = True) -> dict:
     """`steps` Adam steps of model.loss from the weights `init` on
     batches[step % len(batches)], the masked views and dropout drawn from
     one seeded generator; step 0 is a warm-up, steps 1.. run under
@@ -1909,10 +2097,12 @@ def train_run(model, init, batches, steps: int, label: str, smi: str, plain: boo
     opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=LR,
                            betas=(0.9, 0.999), eps=1e-8)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    out = {"loss": [], "step_ms": [], "trunk_launches": [], "weight_builds": []}
+    out = {"loss": [], "step_ms": [], "trunk_launches": [], "weight_builds": [], "trunk_save_launches": [],
+           "trunk_bwd_launches": [], "bwd_weight_builds": []}
 
     def step(i):
         launches, builds = trunk.launches, prepare_weights.calls
+        saves, bwds, bwd_builds = trunk.save_launches, trunk_bwd.launches, prepare_bwd_weights.calls
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
@@ -1925,6 +2115,9 @@ def train_run(model, init, batches, steps: int, label: str, smi: str, plain: boo
         out["step_ms"].append(1e3 * dt)
         out["trunk_launches"].append(trunk.launches - launches)
         out["weight_builds"].append(prepare_weights.calls - builds)
+        out["trunk_save_launches"].append(trunk.save_launches - saves)
+        out["trunk_bwd_launches"].append(trunk_bwd.launches - bwds)
+        out["bwd_weight_builds"].append(prepare_bwd_weights.calls - bwd_builds)
         return dt
 
     torch.cuda.synchronize()
@@ -1935,7 +2128,8 @@ def train_run(model, init, batches, steps: int, label: str, smi: str, plain: boo
         step(0)  # warm-up: allocator, cuDNN autotuning, Adam state
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             window = sum(step(i) for i in range(1, steps))
-        counts = expect_launches(f"{label} training", 0 if plain else steps, 0)
+        counts = expect_launches(f"{label} training", 0 if plain else steps, 0,
+                                 trunk_bwds=0 if plain else steps * trains_encoder)
     out["launches"] = counts
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["window"] = window_report(prof, window, f"{label}{' (plain kernels)' if plain else ''}", smi,
@@ -1944,6 +2138,7 @@ def train_run(model, init, batches, steps: int, label: str, smi: str, plain: boo
         raise RuntimeError(f"{label}: non-finite loss {out['loss']}")
     print(f"{label}{' plain' if plain else ''}: losses {out['loss']}, ms/step {out['step_ms']}, "
           f"trunk launches {out['trunk_launches']}, kernel-weight builds {out['weight_builds']}, "
+          f"B1-bwd launches {out['trunk_bwd_launches']}, its weight builds {out['bwd_weight_builds']}, "
           f"peak memory {out['peak_memory_gb']:.2f} GB", flush=True)
     return out
 
@@ -1976,9 +2171,10 @@ def training_phase(tmp: Path, smi: str) -> dict:
     model = BasicAE(AE_HPARAMS, device="cuda", generator=gen)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     ae = train_run(model, init, [{"images": x} for x in images], AE_STEPS, "basic_ae", smi, plain=False)
-    if ae["trunk_launches"] != [1] * AE_STEPS or ae["weight_builds"] != [1] * AE_STEPS:
-        raise RuntimeError(f"basic_ae: trunk launches {ae['trunk_launches']} and kernel-weight builds "
-                           f"{ae['weight_builds']} per step, expected 1 and 1 (Adam writes the weights)")
+    expect("basic_ae per step: B1 launches (B1-save), kernel-weight builds, B1-bwd launches, its weight builds "
+           "(Adam writes the weights)",
+           (ae["trunk_launches"], ae["trunk_save_launches"], ae["weight_builds"], ae["trunk_bwd_launches"],
+            ae["bwd_weight_builds"]), ([1] * AE_STEPS,) * 5)
     ckpt = tmp / "basic_ae.ckpt"
     save_task_ckpt(ckpt, model)
     ae_plain = train_run(model, init, [{"images": x} for x in images], AE_STEPS, "basic_ae", smi, plain=True)
@@ -1994,19 +2190,22 @@ def training_phase(tmp: Path, smi: str) -> dict:
     init = {k: v.clone() for k, v in model.state_dict().items()}
     roads = [(rng.rand(BATCH, 800, 800) > 0.5).astype(np.float32) for _ in images]
     batches = [{"images": x, "road": torch.from_numpy(r).cuda()} for x, r in zip(images, roads)]
-    rm = train_run(model, init, batches, RM_STEPS, "roadmap_bce frozen encoder", smi, plain=False)
+    rm = train_run(model, init, batches, RM_STEPS, "roadmap_bce frozen encoder", smi, plain=False,
+                   trains_encoder=False)
     state = model.state_dict()
     moved = [k for k, v in init.items() if k.startswith("encoder.") and "running" not in k
              and not torch.equal(state[k], v)]
     if moved or torch.equal(state["fc1.weight"], init["fc1.weight"]):
         raise RuntimeError(f"roadmap_bce frozen encoder: encoder parameters moved {moved}, "
                            f"or the head did not")
-    if rm["trunk_launches"] != [1] * RM_STEPS or rm["weight_builds"] != [1] + [0] * (RM_STEPS - 1):
-        raise RuntimeError(f"roadmap_bce: trunk launches {rm['trunk_launches']} and kernel-weight builds "
-                           f"{rm['weight_builds']} per step, expected 1 each and one build (frozen weights)")
+    expect("roadmap_bce per step: B1 launches, kernel-weight builds (frozen weights), B1-bwd launches",
+           (rm["trunk_launches"], rm["weight_builds"], rm["trunk_save_launches"], rm["trunk_bwd_launches"],
+            rm["bwd_weight_builds"]), ([1] * RM_STEPS, [1] + [0] * (RM_STEPS - 1), [0] * RM_STEPS, [0] * RM_STEPS,
+                                       [0] * RM_STEPS))
     print("roadmap_bce frozen encoder: encoder parameters bit-identical after the steps, head moved",
           flush=True)
-    rm_plain = train_run(model, init, batches, RM_STEPS, "roadmap_bce frozen encoder", smi, plain=True)
+    rm_plain = train_run(model, init, batches, RM_STEPS, "roadmap_bce frozen encoder", smi, plain=True,
+                         trains_encoder=False)
     rm["loss_rel_err"] = hold_trajectory("roadmap_bce frozen encoder", rm["loss"], rm_plain["loss"])
     out["roadmap_bce"], out["roadmap_bce_plain"] = rm, rm_plain
     out["ae_ckpt"] = ckpt
@@ -2089,7 +2288,8 @@ def staged_train_run(model, init, batches, label: str, smi: str, plain: bool, fr
                 out[f"top_aten_{stage}"] = top_aten_ops(prof, last - first - 1, f"{name}, {stage}", k=top_k)
             del prof
         out["launches"] = {"trunk": trunk.launches, "raster": raster.launches, "roialign": roialign.launches,
-                           "roialign_backward": roialign_backward.launches}
+                           "roialign_backward": roialign_backward.launches, "trunk_save": trunk.save_launches,
+                           "trunk_bwd": trunk_bwd.launches}
     if plain:
         expect(f"{name} kernel launches", out["launches"], dict.fromkeys(out["launches"], 0))
     out["encoder_start"], out["encoder_end"] = start, encoder()
@@ -2103,6 +2303,7 @@ def staged_train_run(model, init, batches, label: str, smi: str, plain: bool, fr
 
 
 BOX_COUNTERS = {"trunk_launches": lambda: trunk.launches, "raster_launches": lambda: raster.launches,
+                "trunk_save_launches": lambda: trunk.save_launches, "trunk_bwd_launches": lambda: trunk_bwd.launches,
                 "weight_builds": lambda: prepare_weights.calls}
 
 
@@ -2134,6 +2335,8 @@ def box_training_phase(ae_ckpt: Path, smi: str) -> dict:
                                BOX_UNFREEZE, BOX_COUNTERS)
         rasters = 0 if isinstance(model, Boxes) else 1
         expect(f"{label} B1 launches per step", run["trunk_launches"], [1] * (BOX_FROZEN + BOX_UNFROZEN))
+        expect(f"{label} B1-save, B1-bwd launches per step", (run["trunk_save_launches"], run["trunk_bwd_launches"]),
+               ([0] * BOX_FROZEN + [1] * BOX_UNFROZEN,) * 2)
         expect(f"{label} B2 launches per step", run["raster_launches"], [rasters] * (BOX_FROZEN + BOX_UNFROZEN))
         # one layout in all while frozen (the first forward); the first
         # unfrozen forward still finds the frozen weights, each later one
@@ -2208,16 +2411,22 @@ def det_first_step(model, init, batch, label: str) -> dict:
 
 
 DET_COUNTERS = {"trunk_launches": lambda: trunk.launches, "roialign_launches": lambda: roialign.launches,
+                "trunk_save_launches": lambda: trunk.save_launches, "trunk_bwd_launches": lambda: trunk_bwd.launches,
                 "roialign_backward_launches": lambda: roialign_backward.launches,
                 "weight_builds": lambda: prepare_weights.calls, "nms_checks": lambda: det.nms_fixed.checks}
 
 
-def device_ms_per_call(fn, calls: int = 10, tries: int = 3) -> float:
+def device_ms_per_call(fn, stream_ms: float, window_ms: float = 30.0, tries: int = 5) -> tuple[float, str]:
     """Device time per call of fn(): every kernel and copy it runs, from
-    torch.profiler over `calls` calls after a warm-up. Now and then the
-    profiler hands back a window with no device activity at all (seen once
-    in a whole run, on B3's 0.05-ms calls, which other runs traced): such a
-    window is taken again, up to `tries` in all, and the retry printed."""
+    torch.profiler over enough calls to fill about window_ms on the stream
+    (10 to 200; stream_ms is fn's time on the stream) after a warm-up ->
+    (ms, where it came from). Now and then the profiler hands back a window
+    with no device activity at all (B3's 0.06-ms calls in 10-call windows:
+    one or two windows in most runs, all three in one): such a window is
+    taken again, up to `tries` in all, and the retries printed. Where every
+    window is empty, the time on the stream by CUDA events stands in, and
+    the second value says so."""
+    calls = int(min(200, max(10, -(-window_ms // max(stream_ms, 1e-3)))))
     fn()
     torch.cuda.synchronize()
     for attempt in range(tries):
@@ -2229,10 +2438,12 @@ def device_ms_per_call(fn, calls: int = 10, tries: int = 3) -> float:
                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
         if us:
             if attempt:
-                print(f"device_ms_per_call: {attempt} profiler window(s) traced no device time before this one",
-                      flush=True)
-            return us / 1e3 / calls
-    raise RuntimeError(f"the profiler traced no device time in {tries} windows")
+                print(f"device_ms_per_call: {attempt} profiler window(s) of {calls} calls traced no device time "
+                      "before this one", flush=True)
+            return us / 1e3 / calls, "torch.profiler"
+    print(f"device_ms_per_call: {tries} profiler windows of {calls} calls traced no device time; the time on "
+          "the stream (CUDA events) stands in", flush=True)
+    return stream_ms, "CUDA events (the profiler traced nothing)"
 
 
 def det_stage_ms(model, batch, smi: str) -> dict:
@@ -2268,7 +2479,7 @@ def det_stage_ms(model, batch, smi: str) -> dict:
 
     stages = {
         "B1 forward [8, 800, 800, 3]": lambda: trunk(x.detach(), *[p.detach() for p in params]),
-        "B1 forward + its op's backward (plain recompute, cuDNN dgrad and wgrad)":
+        "B1-save forward + B1-bwd (x and the six parameters' gradients)":
             lambda: trunk(xg, *params).backward(g3),
         "RPN convs forward + backward": lambda: sum(t.sum() for t in head.rpn_forward(feats.detach())).backward(),
         "match_labels_grid (2.4M anchors x 100 GT an image)":
@@ -2286,9 +2497,11 @@ def det_stage_ms(model, batch, smi: str) -> dict:
     }
     out = {}
     for name, fn in stages.items():
-        out[name] = {"device_ms": device_ms_per_call(fn), "stream_ms": cuda_ms(fn, budget_ms=200.0)}
-        print(f"{model.name} training stage ({smi}): device {out[name]['device_ms']:9.3f} ms, on the stream "
-              f"{out[name]['stream_ms']:9.3f} ms  {name}", flush=True)
+        stream_ms = cuda_ms(fn, budget_ms=200.0)
+        device_ms, source = device_ms_per_call(fn, stream_ms)
+        out[name] = {"device_ms": device_ms, "device_ms_from": source, "stream_ms": stream_ms}
+        print(f"{model.name} training stage ({smi}): device {device_ms:9.3f} ms ({source}), on the stream "
+              f"{stream_ms:9.3f} ms  {name}", flush=True)
     model.zero_grad(set_to_none=True)
     return out
 
@@ -2298,8 +2511,8 @@ def det_training_phase(ae_ckpt: Path, smi: str) -> dict:
     at the JAX package's DetectionConfig defaults: the first step by parts
     against the plain kernels, then DET_FROZEN frozen and DET_UNFROZEN
     unfrozen Adam steps through the kernels and again with the plain
-    kernels. Checks the launches a step (B1 and B3 once; B3-bwd once for
-    faster_rcnn_rm, and for faster_rcnn once the encoder trains), one
+    kernels. Checks the launches a step (B1 and B3 once; B3-bwd and B1-bwd
+    once for faster_rcnn_rm, and for faster_rcnn once the encoder trains), one
     kernel-weight layout while frozen and one after each update once the
     encoder trains, the encoder bit-identical while frozen, the losses;
     then times each stage of a faster_rcnn_rm step."""
@@ -2317,6 +2530,10 @@ def det_training_phase(ae_ckpt: Path, smi: str) -> dict:
         steps = DET_FROZEN + DET_UNFROZEN
         bwd = [1] * steps if model.uses_roadmap else [0] * DET_FROZEN + [1] * DET_UNFROZEN
         expect(f"{label} B1 launches per step", run["trunk_launches"], [1] * steps)
+        # B1-bwd as B3-bwd: faster_rcnn_rm's layout image comes from mapper_cnn, which trains from step
+        # 0, so the trunk's input asks for a gradient (dx) while the encoder is frozen
+        expect(f"{label} B1-save, B1-bwd launches per step", (run["trunk_save_launches"], run["trunk_bwd_launches"]),
+               (bwd, bwd))
         expect(f"{label} B3 launches per step", run["roialign_launches"], [1] * steps)
         expect(f"{label} B3-bwd launches per step", run["roialign_backward_launches"], bwd)
         expect(f"{label} kernel-weight builds per step", run["weight_builds"],
@@ -2395,11 +2612,15 @@ def cli_run(label: str, main, argv: list, smi: str, ranges: tuple = ()) -> tuple
     rec = {"seconds": time.perf_counter() - t0, "trunk_launches": trunk.launches,
            "trunk_int8_launches": trunk_int8.launches,
            "raster_launches": raster.launches, "roialign_launches": roialign.launches,
-           "roialign_backward_launches": roialign_backward.launches,
+           "roialign_backward_launches": roialign_backward.launches, "trunk_save_launches": trunk.save_launches,
+           "trunk_bwd_launches": trunk_bwd.launches,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi,
            "ranges": {name: range_idle(prof, name) for name in ranges}}
-    print(f"{label} ({smi}): {rec['seconds']:.1f} s, B1 launches {rec['trunk_launches']}, B1-int8 launches "
-          f"{rec['trunk_int8_launches']}, peak memory "
+    if rec["trunk_save_launches"] != rec["trunk_bwd_launches"]:
+        raise RuntimeError(f"{label}: B1-save launched {rec['trunk_save_launches']} times, B1-bwd "
+                           f"{rec['trunk_bwd_launches']}: each backward reads one forward's saved tensors")
+    print(f"{label} ({smi}): {rec['seconds']:.1f} s, B1 launches {rec['trunk_launches']} (B1-save "
+          f"{rec['trunk_save_launches']}), B1-bwd launches {rec['trunk_bwd_launches']}, B1-int8 launches {rec['trunk_int8_launches']}, peak memory "
           f"{rec['peak_memory_gb']:.2f} GB" + "".join(
               f"; '{name}' {r['ms']:.1f} ms, device busy {r['busy_ms']:.1f} ms, idle share {r['idle_share']:.3f}"
               for name, r in rec["ranges"].items()), flush=True)
@@ -2542,6 +2763,7 @@ def staged_cli(label: str, main, argv: list, cls, smi: str, rasters: int, images
            [[(1, rasters)], [(1, rasters)], [(1, 1)] if images else []])
     expect(f"{label} B1, B2 launches", (rec["trunk_launches"], rec["raster_launches"]),
            (steps + CLI_EPOCHS + images, rasters * (steps + CLI_EPOCHS) + images))
+    expect(f"{label} B1-bwd launches (epoch 1's steps)", rec["trunk_bwd_launches"], CLI_BATCHES)
     builds = [marks[1][0] - marks[0][0], prepare_weights.calls - marks[1][0]]
     expect(f"{label} kernel-weight builds by epoch", builds, [1, CLI_BATCHES])
     moved = [n for n, v in marks[0][1].items() if not torch.equal(v, marks[1][1][n])]
@@ -2622,6 +2844,8 @@ def det_staged_cli(label: str, argv: list, smi: str) -> tuple:
     expect(f"{label} B1, B3, B3-bwd launches",
            (rec["trunk_launches"], rec["roialign_launches"], rec["roialign_backward_launches"]),
            (steps + 3 * CLI_EPOCHS, steps + 3 * CLI_EPOCHS, steps))
+    # the layout image comes from mapper_cnn, which trains from step 0: B1-bwd (dx) in every step
+    expect(f"{label} B1-bwd launches (every step)", rec["trunk_bwd_launches"], steps)
     builds = [marks[1][0] - marks[0][0], prepare_weights.calls - marks[1][0]]
     expect(f"{label} kernel-weight builds by epoch", builds, [1, CLI_BATCHES])
     moved = [n for n, v in marks[0][1].items() if not torch.equal(v, marks[1][1][n])]
@@ -2682,9 +2906,9 @@ def det_cli_runs(tmp: Path, box_argv: list, smi: str) -> dict:
     dtypes = []
     launch = trunk_module._launch
 
-    def spy_launch(x, params, stages):
+    def spy_launch(x, params, stages, **kwargs):
         dtypes.append(x.dtype)
-        return launch(x, params, stages)
+        return launch(x, params, stages, **kwargs)
 
     det_argv = box_argv + ["--variant", "rm"]
     root_det = tmp / "cli_det"
@@ -2701,6 +2925,7 @@ def det_cli_runs(tmp: Path, box_argv: list, smi: str) -> dict:
         expect("cli.faster_rcnn, deterministic B1, B3, B3-bwd launches",
                (ref["trunk_launches"], ref["roialign_launches"], ref["roialign_backward_launches"]),
                (steps + 3 * CLI_EPOCHS, steps + 3 * CLI_EPOCHS, steps))
+        expect("cli.faster_rcnn, deterministic B1-bwd launches", ref["trunk_bwd_launches"], steps)
         ref = fit_measures("cli.faster_rcnn, deterministic", tmp / "cli_det_det", "faster_rcnn_rm", ref)
         del fit
         torch.cuda.empty_cache()
@@ -2710,6 +2935,7 @@ def det_cli_runs(tmp: Path, box_argv: list, smi: str) -> dict:
         expect("cli.faster_rcnn --max_steps B1, B3, B3-bwd launches (5 steps, 1 validation batch)",
                (stop["trunk_launches"], stop["roialign_launches"], stop["roialign_backward_launches"]),
                (CLI_AE_STOP + 3, CLI_AE_STOP + 3, CLI_AE_STOP))
+        expect("cli.faster_rcnn --max_steps B1-bwd launches", stop["trunk_bwd_launches"], CLI_AE_STOP)
         last = fit.last_ckpt_path
         del fit
         torch.cuda.empty_cache()
@@ -2719,6 +2945,7 @@ def det_cli_runs(tmp: Path, box_argv: list, smi: str) -> dict:
     expect("cli.faster_rcnn resumed B1, B3, B3-bwd launches",
            (resumed["trunk_launches"], resumed["roialign_launches"], resumed["roialign_backward_launches"]),
            (steps - CLI_AE_STOP + 3, steps - CLI_AE_STOP + 3, steps - CLI_AE_STOP))
+    expect("cli.faster_rcnn resumed B1-bwd launches", resumed["trunk_bwd_launches"], steps - CLI_AE_STOP)
     del fit
     torch.cuda.empty_cache()
     out["faster_rcnn_rm_resume"] = {**hold_resume("cli.faster_rcnn", root_dr, "faster_rcnn_rm", ref["losses"],
@@ -2742,6 +2969,7 @@ def det_cli_runs(tmp: Path, box_argv: list, smi: str) -> dict:
                            argv + ["--default_root_dir", str(root_d16), "--max_steps", "2"], smi)
     expect("cli.faster_rcnn --precision 16 B1, B3, B3-bwd launches",
            (rec["trunk_launches"], rec["roialign_launches"], rec["roialign_backward_launches"]), (2, 2, 2))
+    expect("cli.faster_rcnn --precision 16 B1-bwd launches (dx for mapper_cnn)", rec["trunk_bwd_launches"], 2)
     expect("cli.faster_rcnn --precision 16 trunk dtypes", dtypes, [torch.bfloat16] * 2)
     expect("cli.faster_rcnn --precision 16 RoIAlign kernels and feature dtypes", roi_dtypes,
            [("dd_roialign_forward", torch.bfloat16), ("dd_roialign_backward", torch.bfloat16)] * 2)
@@ -2753,8 +2981,9 @@ def det_cli_runs(tmp: Path, box_argv: list, smi: str) -> dict:
     root_dp = tmp / "cli_det_plain"
     fit, rec = cli_run("cli.faster_rcnn --variant plain", cli_faster_rcnn.main,
                        box_argv + ["--variant", "plain", "--default_root_dir", str(root_dp), "--max_steps", "2"], smi)
-    expect("cli.faster_rcnn --variant plain B1, B3, B3-bwd launches (2 frozen steps)",
-           (rec["trunk_launches"], rec["roialign_launches"], rec["roialign_backward_launches"]), (2, 2, 0))
+    expect("cli.faster_rcnn --variant plain B1, B3, B3-bwd, B1-bwd launches (2 frozen steps)",
+           (rec["trunk_launches"], rec["roialign_launches"], rec["roialign_backward_launches"],
+            rec["trunk_bwd_launches"]), (2, 2, 0, 0))
     out["faster_rcnn"] = fit_measures("cli.faster_rcnn --variant plain", root_dp, "faster_rcnn", rec)
     del fit
     shutil.rmtree(root_dp)
@@ -2790,7 +3019,8 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
         fit, rec = cli_run("cli.basic_ae", cli_basic_ae.main, ae_argv + ["--default_root_dir", str(root_a)],
                            smi, ranges=tuple(f"epoch {e} train" for e in range(CLI_EPOCHS)))
     expect("cli.basic_ae stop", fit.stop_reason, None)
-    expect("cli.basic_ae B1 launches", rec["trunk_launches"], steps + CLI_EPOCHS)
+    expect("cli.basic_ae B1, B1-bwd launches", (rec["trunk_launches"], rec["trunk_bwd_launches"]),
+           (steps + CLI_EPOCHS, steps))
     out["basic_ae"] = fit_measures("cli.basic_ae", root_a, "basic_ae", rec)
     expect("cli.basic_ae steps", sorted(rec["losses"]), list(range(steps)))
     ae_ckpt = root_a / "basic_ae" / "last.ckpt"
@@ -2803,13 +3033,15 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
         fit, stop = cli_run("cli.basic_ae --max_steps", cli_basic_ae.main,
                             ae_argv + ["--default_root_dir", str(root_b), "--max_steps", str(CLI_AE_STOP)], smi)
         expect("cli.basic_ae --max_steps stop", fit.stop_reason, f"max_steps={CLI_AE_STOP} reached")
-        expect("cli.basic_ae --max_steps B1 launches", stop["trunk_launches"], CLI_AE_STOP + 1)
+        expect("cli.basic_ae --max_steps B1, B1-bwd launches", (stop["trunk_launches"], stop["trunk_bwd_launches"]),
+               (CLI_AE_STOP + 1, CLI_AE_STOP))
         last = fit.last_ckpt_path
         del fit
         torch.cuda.empty_cache()
         fit, resumed = cli_run("cli.basic_ae resumed", cli_basic_ae.main,
                                ae_argv + ["--default_root_dir", str(root_b), "--resume_from_checkpoint", last], smi)
-    expect("cli.basic_ae resumed B1 launches", resumed["trunk_launches"], steps - CLI_AE_STOP + 1)
+    expect("cli.basic_ae resumed B1, B1-bwd launches", (resumed["trunk_launches"], resumed["trunk_bwd_launches"]),
+           (steps - CLI_AE_STOP + 1, steps - CLI_AE_STOP))
     del fit
     torch.cuda.empty_cache()
     out["basic_ae_resume"] = {**hold_resume("cli.basic_ae", root_b, "basic_ae", out["basic_ae"]["losses"],
@@ -2866,9 +3098,9 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
     dtypes = []
     launch = trunk_module._launch
 
-    def spy_launch(x, params, stages):
+    def spy_launch(x, params, stages, **kwargs):
         dtypes.append(x.dtype)
-        return launch(x, params, stages)
+        return launch(x, params, stages, **kwargs)
 
     root_16 = tmp / "cli_rm16"
     with mock.patch.object(trunk_module, "_launch", spy_launch):
@@ -2876,7 +3108,8 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
                            rm_argv[:rm_argv.index("--precision")] + ["--precision", "16"]
                            + rm_argv[rm_argv.index("--precision") + 2:]
                            + ["--default_root_dir", str(root_16), "--max_steps", "2"], smi)
-    expect("cli.roadmap --precision 16 B1 launches", rec["trunk_launches"], 2)
+    expect("cli.roadmap --precision 16 B1, B1-bwd launches (frozen steps)",
+           (rec["trunk_launches"], rec["trunk_bwd_launches"]), (2, 0))
     expect("cli.roadmap --precision 16 trunk dtypes", dtypes, [torch.bfloat16] * 2)
     out["roadmap_bce_16"] = fit_measures("cli.roadmap --precision 16", root_16, "roadmap_bce", rec)
     del fit
@@ -2932,24 +3165,27 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
     with deterministic_algorithms():
         fit, ref = cli_run("cli.multitask, deterministic", cli_multitask.main,
                            box_argv + ["--default_root_dir", str(tmp / "cli_multitask_det")], smi)
-        expect("cli.multitask, deterministic B1, B2 launches", (ref["trunk_launches"], ref["raster_launches"]),
-               (steps + CLI_EPOCHS,) * 2)
+        expect("cli.multitask, deterministic B1, B2, B1-bwd launches",
+               (ref["trunk_launches"], ref["raster_launches"], ref["trunk_bwd_launches"]),
+               (steps + CLI_EPOCHS, steps + CLI_EPOCHS, CLI_BATCHES))
         ref = fit_measures("cli.multitask, deterministic", tmp / "cli_multitask_det", "multitask", ref)
         del fit
         torch.cuda.empty_cache()
         fit, stop = cli_run("cli.multitask --max_steps", cli_multitask.main,
                             box_argv + ["--default_root_dir", str(root_mr), "--max_steps", str(CLI_AE_STOP)], smi)
         expect("cli.multitask --max_steps stop", fit.stop_reason, f"max_steps={CLI_AE_STOP} reached")
-        expect("cli.multitask --max_steps B1, B2 launches", (stop["trunk_launches"], stop["raster_launches"]),
-               (CLI_AE_STOP + 1, CLI_AE_STOP + 1))
+        expect("cli.multitask --max_steps B1, B2, B1-bwd launches",
+               (stop["trunk_launches"], stop["raster_launches"], stop["trunk_bwd_launches"]),
+               (CLI_AE_STOP + 1, CLI_AE_STOP + 1, CLI_AE_STOP - CLI_BATCHES))
         last = fit.last_ckpt_path
         del fit
         torch.cuda.empty_cache()
         fit, resumed = cli_run("cli.multitask resumed", cli_multitask.main,
                                box_argv + ["--default_root_dir", str(root_mr), "--resume_from_checkpoint", last],
                                smi)
-    expect("cli.multitask resumed B1, B2 launches", (resumed["trunk_launches"], resumed["raster_launches"]),
-           (steps - CLI_AE_STOP + 1,) * 2)
+    expect("cli.multitask resumed B1, B2, B1-bwd launches",
+           (resumed["trunk_launches"], resumed["raster_launches"], resumed["trunk_bwd_launches"]),
+           (steps - CLI_AE_STOP + 1, steps - CLI_AE_STOP + 1, steps - CLI_AE_STOP))
     del fit
     torch.cuda.empty_cache()
     out["multitask_resume"] = {**hold_resume("cli.multitask", root_mr, "multitask", ref["losses"], CLI_AE_STOP, smi),
@@ -2962,9 +3198,12 @@ def trainer_phase(tmp: Path, smi: str, bare: dict) -> dict:
     argv = box_argv[:box_argv.index("--precision")] + ["--precision", "16"] + box_argv[box_argv.index("--precision") + 2:]
     with mock.patch.object(trunk_module, "_launch", spy_launch):
         fit, rec = cli_run("cli.multitask --precision 16", cli_multitask.main,
-                           argv + ["--default_root_dir", str(root_mt16), "--max_steps", "2"], smi)
-    expect("cli.multitask --precision 16 B1, B2 launches", (rec["trunk_launches"], rec["raster_launches"]), (2, 2))
-    expect("cli.multitask --precision 16 trunk dtypes", dtypes, [torch.bfloat16] * 2)
+                           argv + ["--default_root_dir", str(root_mt16), "--max_steps", str(CLI_AE_STOP)], smi)
+    # epoch 0's steps and validation batch frozen, then one step of epoch 1: B1-bwd in bf16
+    expect("cli.multitask --precision 16 B1, B2, B1-bwd launches",
+           (rec["trunk_launches"], rec["raster_launches"], rec["trunk_bwd_launches"]),
+           (CLI_AE_STOP + 1, CLI_AE_STOP + 1, CLI_AE_STOP - CLI_BATCHES))
+    expect("cli.multitask --precision 16 trunk dtypes", dtypes, [torch.bfloat16] * (CLI_AE_STOP + 1))
     out["multitask_16"] = fit_measures("cli.multitask --precision 16", root_mt16, "multitask", rec)
     del fit
     shutil.rmtree(root_mt16)
@@ -3257,6 +3496,7 @@ MESH_RANKS = 2
 MESH_RUNS = (("basic_ae", 3, 1), ("roadmap_bce", 3, 2), ("multitask", 2, 1),
              ("spatial_rm", 3, 2))  # (task, steps, model axis)
 MESH_RASTER = ("multitask", "spatial_rm")  # the runs whose loss rasterizes its targets (B2)
+MESH_ENCODER_TRAINS = ("basic_ae",)  # the runs whose encoder trains (B1-bwd); the others freeze it in epoch 0
 # spatial_rm's shards a rank at tp=2 (the reference geometry): every conv of
 # the heads with 8k output channels cut on them (dim 0 of OIHW, dim 1 of a
 # transposed conv's [in, out, kh, kw]), with its bias; up_conv_5 (8 -> 1)
@@ -3418,10 +3658,12 @@ def mesh_phase(tmp: Path, smi: str, ae_ckpt: Path) -> dict:
               f"{state_err:.3e} (tolerance {MESH_STATE_TOL[name]}); every rank's equal to rank 0's", flush=True)
         if not state_err <= MESH_STATE_TOL[name]:
             raise RuntimeError(f"{label}: final weights {state_err} from one process's > {MESH_STATE_TOL[name]}")
-        want = (steps, steps if name in MESH_RASTER else 0)  # (B1, B2) launches
+        # (B1, B2, B1-bwd) launches: B1-bwd once a step where the encoder trains
+        want = (steps, steps if name in MESH_RASTER else 0, steps if name in MESH_ENCODER_TRAINS else 0)
         for r, got in enumerate(per_rank + [one]):
             expect(f"{label} {'one-process' if r == len(per_rank) else f'rank {r}'} launches",
-                   (got["launches"]["trunk"], got["launches"]["raster"]), want)
+                   (got["launches"]["trunk"], got["launches"]["raster"], got["launches"]["trunk_bwd"]), want)
+            expect(f"{label} B1-save launches", got["launches"]["trunk_save"], want[2])
         if name in MESH_SHARDS:
             for r, got in enumerate(per_rank):
                 expect(f"{label} rank {r} shard shapes", got["shard_shapes"], MESH_SHARDS[name])
@@ -3590,8 +3832,8 @@ def main(argv=None) -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    build.load_libraries(("trunk", "trunk_int8", "raster", "roialign", "roialign_bwd"))
-    print(f"built trunk.cu, trunk_int8.cu, raster.cu, roialign.cu and roialign_bwd.cu in "
+    build.load_libraries(("trunk", "trunk_bwd", "trunk_int8", "raster", "roialign", "roialign_bwd"))
+    print(f"built trunk.cu, trunk_bwd.cu, trunk_int8.cu, raster.cu, roialign.cu and roialign_bwd.cu in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.BUILD_LOG.items():
         print(f"ptxas [{name}]:\n{log.strip()}", flush=True)
@@ -3698,7 +3940,30 @@ def main(argv=None) -> int:
     for r in roialign_recs:
         name = "detection_32" if r["dtype"] == "float32" else "detection_16"
         r["artifact_launches_per_request"] = {name: art[name][2]}
-    records += int8_recs + int8_variant_recs + roialign_recs + roialign_bwd_recs + variant_recs
+    # B1-save and B1-bwd: launches on the training paths (phase 8's BasicAE steps, 8c's faster_rcnn_rm
+    # steps at 800 px, and for bf16 cli.multitask --precision 16's unfrozen step)
+    for r in training["trunk_grad"]["records"]:
+        key = "trunk_save_launches" if r["name"] == "trunk_save" else "trunk_bwd_launches"
+        mesh_key = key[:-len("_launches")]
+        if r["dtype"] == "bfloat16":
+            run = "multitask_16" if r["path"] == "roadmap" else "faster_rcnn_rm_16"
+            r["launches"] = trainer[run][key]
+            r["launches_on"] = ("cli.multitask --precision 16 (4 frozen steps, 1 unfrozen)" if r["path"] == "roadmap"
+                                else "cli.faster_rcnn --precision 16 (2 steps; dx for mapper_cnn)")
+        elif r["path"] == "roadmap":
+            r["launches"] = sum(training["basic_ae"][key])
+            r["launches_on"] = f"basic_ae training, {AE_STEPS} steps"
+            r["cli_launches"] = {k: trainer[k][key] for k in ("basic_ae", "roadmap_bce", *box_clis)}
+            r["training_launches"] = {k: sum(box_training[k][key]) for k in box_names}
+            r["mesh_launches_per_rank"] = {name: [x[mesh_key] for x in mesh[name]["launches"]]
+                                           for name, _, _ in MESH_RUNS}
+        else:
+            r["launches"] = sum(det_training["faster_rcnn_rm"][key])
+            r["launches_on"] = f"faster_rcnn_rm training, {DET_FROZEN} frozen and {DET_UNFROZEN} unfrozen steps"
+            r["training_launches"] = {k: sum(det_training[k][key]) for k in det_names}
+            r["cli_launches"] = {k: trainer[k][key] for k in det_clis}
+    records += (training["trunk_grad"].pop("records") + int8_recs + int8_variant_recs + roialign_recs
+                + roialign_bwd_recs + variant_recs)
     f32_path = next(r for r in records if r.get("path") == "roadmap" and r["dtype"] == "float32")
     f32_path["cli_launches"] = {k: trainer[k]["trunk_launches"]
                                 for k in ("basic_ae", "roadmap_bce", "run_test", *box_clis)}

@@ -23,8 +23,9 @@ here:
                   fallback: without a card, cuda raises. Ranks of cuda take
                   cuda:LOCAL_RANK and NCCL (the card must exist); cuda:K
                   puts every rank on card K, over gloo, as asked.
-  --remat         accepted; the port's trunk always recomputes in its
-                  backward (kernels/trunk.py:trunk_vjp).
+  --remat         accepted and read by nothing: the port's trunk keeps c1
+                  and c2 for its backward kernel, which recomputes
+                  nothing (kernels/trunk.py:trunk_train_op).
   --distributed_backend   accepted and ignored, as in the JAX package.
   --precision 8   trains in bf16, as 16 does (int8 is inference-only);
                   validation runs the trunk in bf16 after a one-time

@@ -12,6 +12,13 @@
 // included). Only x and c3 touch device memory: c1 and c2 live in shared
 // memory, one output tile at a time. c1 and c2 positions outside the image
 // are stored as zero, not relu(bias): they are the next conv's zero padding.
+// Under training the kernel is compiled with a switch (SAVE, B1-save) that
+// also writes each tile's own c1 and c2 positions to device memory, with
+// coalesced 16-B stores from the swizzled shared tiles, for the backward
+// kernel csrc/trunk_bwd.cu (B1-bwd), which then recomputes nothing; that
+// adds 963 MB of writes at [8, 256, 1836, 3] in f32 (0.29 ms of bytes,
+// under the 0.564-ms bound by operations) and 481 MB in bf16, where the
+// bytes then bound it (0.168 ms).
 //
 // Two kernels, one per activation dtype, both implicit GEMMs on the tensor
 // cores (mma.sync) over the same skeleton (a persistent grid of c3 tiles,
@@ -47,66 +54,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "trunk_common.cuh"
+
 namespace {
-
-constexpr int C = 32;    // trunk width, fixed by the architecture
-constexpr int CIN = 3;   // input channels
-
-__device__ __forceinline__ bool inside(int y, int x, int h, int w) {
-  return y >= 0 && y < h && x >= 0 && x < w;
-}
-
-constexpr int align128(int v) { return (v + 127) / 128 * 128; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(addr));
-}
-
-// Copy nw 16-B words from w, then nb from b, into shared memory at smem
-// with cp.async; the caller's next __syncthreads makes them visible.
-__device__ __forceinline__ void stage(unsigned char* smem, const uint4* w, int nw, const uint4* b,
-                                      int nb, int tid, int threads) {
-  for (int i = tid; i < nw + nb; i += threads) {
-    const uint4* src = i < nw ? w + i : b + (i - nw);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(smem_addr(smem + 16 * i)), "l"(src));
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-struct Tile {
-  int b, oy0, ox0;
-};
-
-// Tile t of the persistent grid's walk over (image, tile row, tile column).
-template <int TH, int TW>
-__device__ __forceinline__ Tile tile_at(long long t, long long per_img, int tiles_x) {
-  const int b = static_cast<int>(t / per_img);
-  const int rem = static_cast<int>(t - b * per_img);
-  return {b, (rem / tiles_x) * TH, (rem % tiles_x) * TW};
-}
-
-// Launch a persistent kernel: one CTA per tile, at most as many as fit on
-// the card at once (the CTAs then walk over the tiles).
-template <typename... P, typename... A>
-cudaError_t launch_persistent(void (*kernel)(P...), int threads, int smem, long long tiles,
-                              cudaStream_t stream, A... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int grid = static_cast<int>(tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm);
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
 
 // ===================== float32: split TF32 on the tensor cores =====================
 //
@@ -198,41 +148,7 @@ constexpr int OFF_C2 = align128(OFF_C1 + N1 * 128);
 constexpr int SMEM = OFF_C2 + N2 * 128;
 static_assert(SMEM <= 232448, "shared memory of one CTA");
 
-// Byte offset of 16-B channel chunk `chunk` (channels 4*chunk .. +3) of
-// pixel p in a [pixel][32] f32 buffer, swizzled.
-__device__ __forceinline__ int sw(int p, int chunk) {
-  return (p << 7) | ((chunk ^ (p & 7)) << 4);
-}
-
-constexpr uint32_t TF32_MASK = 0xffffe000u;  // sign, exponent and 10 mantissa bits
-
-// v = hi + lo to 2^-21 of |v|, both TF32 (the split above).
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & TF32_MASK;
-  lo = __float_as_uint(v - __uint_as_float(hi)) & TF32_MASK;
-}
-
-// The B fragments of one k-step for two n8 tiles (b0, b1 of each), split.
-struct BPair {
-  uint32_t hi[4], lo[4];
-};
-
-__device__ __forceinline__ BPair split_b(const uint4& w) {
-  BPair f;
-  split(__uint_as_float(w.x), f.hi[0], f.lo[0]);
-  split(__uint_as_float(w.y), f.hi[1], f.lo[1]);
-  split(__uint_as_float(w.z), f.hi[2], f.lo[2]);
-  split(__uint_as_float(w.w), f.hi[3], f.lo[3]);
-  return f;
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using namespace tf32;  // sw, split, split_b, mma (trunk_common.cuh)
 
 // d += a * (n8 tile t of the pair b), in three TF32 products.
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
@@ -456,14 +372,39 @@ __device__ __forceinline__ void store_stage(const float2* xs, const unsigned cha
   }
 }
 
+// B1-save: this tile's own c1 (SAVED 1) or c2 (SAVED 2) positions, rows
+// 2*oy0 .. 2*oy0 + 2*TH - 1 and columns 2*ox0 .. 2*ox0 + 2*TW - 1 clipped
+// to the image, from the swizzled shared tile to device memory [B, H, W,
+// 32], one 16-B chunk a thread: consecutive threads write consecutive
+// chunks of a row. The halo that neighbouring tiles also compute is not
+// written, so every position is written once.
+template <int SAVED>
+__device__ __forceinline__ void save_stage(const unsigned char* src, float* dst, Tile tl, int H, int W,
+                                           int tid) {
+  for (int i = tid; i < 2 * TH * 2 * TW * 8; i += THREADS) {
+    const int pos = i >> 3, c = i & 7, r = pos / (2 * TW), q = pos % (2 * TW);
+    const int gy = 2 * tl.oy0 + r, gx = 2 * tl.ox0 + q;
+    if (gy >= H || gx >= W) continue;
+    int p;
+    if constexpr (SAVED == 1) {
+      p = (r + 2) * Q1 + q + 2;  // c1 local (r + 2, q + 2)
+    } else {
+      const int qq = q + 1;      // c2 local (r + 1, q + 1), even columns first
+      p = (r + 1) * Q2 + ((qq & 1) ? Q2E + (qq >> 1) : (qq >> 1));
+    }
+    *reinterpret_cast<float4*>(dst + (((size_t)tl.b * H + gy) * W + gx) * C + 4 * c) =
+        *reinterpret_cast<const float4*>(src + sw(p, c));
+  }
+}
+
 // The bisection instantiations (STAGES < 3) return before the later stages,
 // which nvcc may report as unreachable (diagnostic 128).
 #pragma nv_diag_suppress 128
-template <int STAGES>
+template <int STAGES, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 1)
 trunk_tf32_kernel(const float* __restrict__ x, const uint4* __restrict__ wfrag,
-                  const uint4* __restrict__ bias, float* __restrict__ out,
-                  int B, int H, int W, int Ho, int Wo) {
+                  const uint4* __restrict__ bias, float* __restrict__ out, float* __restrict__ c1o,
+                  float* __restrict__ c2o, int B, int H, int W, int Ho, int Wo) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint4* w1f = reinterpret_cast<const uint4*>(smem);
   const uint4* w2f = w1f + KS1 * FRAG;
@@ -506,6 +447,7 @@ trunk_tf32_kernel(const float* __restrict__ x, const uint4* __restrict__ wfrag,
       store_stage<1>(xs, c1s, c2s, out, tl, Ho, Wo, tid);
       continue;
     }
+    if constexpr (SAVE) save_stage<1>(c1s, c1o, tl, H, W, tid);
     if (warp < W2A)
       conv2<G2A>(smem_addr(c1s), w2f, bs + C, c2s, tl, H, W, warp * G2A, lane);
     else
@@ -515,18 +457,20 @@ trunk_tf32_kernel(const float* __restrict__ x, const uint4* __restrict__ wfrag,
       store_stage<2>(xs, c1s, c2s, out, tl, Ho, Wo, tid);
       continue;
     }
+    if constexpr (SAVE) save_stage<2>(c2s, c2o, tl, H, W, tid);
     conv3(smem_addr(c2s), w3f, bs + 2 * C, out, tl, Ho, Wo, warp, lane);
   }
 }
 
-template <int STAGES>
-cudaError_t launch(const void* x, const void* weights, const void* biases, void* out,
+template <int STAGES, bool SAVE>
+cudaError_t launch(const void* x, const void* weights, const void* biases, void* out, void* c1, void* c2,
                    int B, int H, int W, cudaStream_t stream) {
   const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
   const long long tiles = (long long)((Wo + TW - 1) / TW) * ((Ho + TH - 1) / TH) * B;
-  return launch_persistent(trunk_tf32_kernel<STAGES>, THREADS, SMEM, tiles, stream,
+  return launch_persistent(trunk_tf32_kernel<STAGES, SAVE>, THREADS, SMEM, tiles, stream,
                            static_cast<const float*>(x), static_cast<const uint4*>(weights),
-                           static_cast<const uint4*>(biases), static_cast<float*>(out), B, H, W, Ho, Wo);
+                           static_cast<const uint4*>(biases), static_cast<float*>(out),
+                           static_cast<float*>(c1), static_cast<float*>(c2), B, H, W, Ho, Wo);
 }
 
 }  // namespace tf
@@ -842,10 +786,31 @@ __device__ __forceinline__ void store_stage(const unsigned short* xs, const unsi
   }
 }
 
-template <int STAGES>
+// B1-save: as the float32 kernel's save_stage, 16 B (8 channels) a thread.
+template <int SAVED>
+__device__ __forceinline__ void save_stage(const unsigned char* src, __nv_bfloat16* dst, Tile tl, int H,
+                                           int W, int tid) {
+  for (int i = tid; i < 2 * TH * 2 * TW * 4; i += THREADS) {
+    const int pos = i >> 2, c = i & 3, r = pos / (2 * TW), q = pos % (2 * TW);
+    const int gy = 2 * tl.oy0 + r, gx = 2 * tl.ox0 + q;
+    if (gy >= H || gx >= W) continue;
+    int p;
+    if constexpr (SAVED == 1) {
+      p = (r + 2) * Q1 + q + 2;  // c1 local (r + 2, q + 2)
+    } else {
+      const int qq = q + 1;      // c2 local (r + 1, q + 1), even columns first
+      p = (r + 1) * Q2 + ((qq & 1) ? Q2E + (qq >> 1) : (qq >> 1));
+    }
+    *reinterpret_cast<uint4*>(dst + (((size_t)tl.b * H + gy) * W + gx) * C + 8 * c) =
+        *reinterpret_cast<const uint4*>(src + sw(p, c));
+  }
+}
+
+template <int STAGES, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 1)
 trunk_tc_kernel(const unsigned short* __restrict__ x, const uint4* __restrict__ wfrag,
                 const uint4* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                __nv_bfloat16* __restrict__ c1o, __nv_bfloat16* __restrict__ c2o,
                 int B, int H, int W, int Ho, int Wo) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint4* w1f = reinterpret_cast<const uint4*>(smem);
@@ -886,34 +851,37 @@ trunk_tc_kernel(const unsigned short* __restrict__ x, const uint4* __restrict__ 
       store_stage<1>(xs, c1s, c2s, out, tl, Ho, Wo, tid);
       continue;
     }
+    if constexpr (SAVE) save_stage<1>(c1s, c1o, tl, H, W, tid);
     conv2(smem_addr(c1s), w2f, bs + C, c2s, tl, H, W, warp, lane);
     __syncthreads();
     if constexpr (STAGES == 2) {
       store_stage<2>(xs, c1s, c2s, out, tl, Ho, Wo, tid);
       continue;
     }
+    if constexpr (SAVE) save_stage<2>(c2s, c2o, tl, H, W, tid);
     conv3(smem_addr(c2s), w3f, bs + 2 * C, out, tl, Ho, Wo, warp, lane);
   }
 }
 
-template <int STAGES>
-cudaError_t launch(const void* x, const void* weights, const void* biases, void* out,
+template <int STAGES, bool SAVE>
+cudaError_t launch(const void* x, const void* weights, const void* biases, void* out, void* c1, void* c2,
                    int B, int H, int W, cudaStream_t stream) {
   const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
   const long long tiles = (long long)((Wo + TW - 1) / TW) * ((Ho + TH - 1) / TH) * B;
-  return launch_persistent(trunk_tc_kernel<STAGES>, THREADS, SMEM, tiles, stream,
+  return launch_persistent(trunk_tc_kernel<STAGES, SAVE>, THREADS, SMEM, tiles, stream,
                            static_cast<const unsigned short*>(x), static_cast<const uint4*>(weights),
-                           static_cast<const uint4*>(biases), static_cast<__nv_bfloat16*>(out), B, H, W,
+                           static_cast<const uint4*>(biases), static_cast<__nv_bfloat16*>(out),
+                           static_cast<__nv_bfloat16*>(c1), static_cast<__nv_bfloat16*>(c2), B, H, W,
                            Ho, Wo);
 }
 
 }  // namespace tc
 
-template <int STAGES>
+template <int STAGES, bool SAVE = false>
 cudaError_t dispatch(int dtype, const void* x, const void* weights, const void* biases, void* out,
-                     int B, int H, int W, cudaStream_t s) {
-  if (dtype == 0) return tf::launch<STAGES>(x, weights, biases, out, B, H, W, s);
-  if (dtype == 1) return tc::launch<STAGES>(x, weights, biases, out, B, H, W, s);
+                     void* c1, void* c2, int B, int H, int W, cudaStream_t s) {
+  if (dtype == 0) return tf::launch<STAGES, SAVE>(x, weights, biases, out, c1, c2, B, H, W, s);
+  if (dtype == 1) return tc::launch<STAGES, SAVE>(x, weights, biases, out, c1, c2, B, H, W, s);
   return cudaErrorInvalidValue;
 }
 
@@ -923,15 +891,22 @@ cudaError_t dispatch(int dtype, const void* x, const void* weights, const void* 
 // 0 (input), 1 (c1) and 2 (c2) are the stage bisection, written at
 // (2oy, 2ox). dtype 0 = float32 (split TF32), 1 = bfloat16, both on the
 // tensor cores, for x and out; weights and biases as prepare_weights lays
-// them out for that dtype. Returns a cudaError_t.
+// them out for that dtype. c1 and c2 are null, or (stages 3 only) both
+// [B, H, W, 32] in x's dtype: then the kernel also writes c1 and c2 there
+// (B1-save, for the backward, kernels/trunk.py:trunk_train_op). Returns a
+// cudaError_t.
 extern "C" int dd_trunk(int stages, int dtype, const void* x, const void* weights,
-                        const void* biases, void* out, int B, int H, int W, void* stream) {
+                        const void* biases, void* out, void* c1, void* c2, int B, int H, int W,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((c1 == nullptr) != (c2 == nullptr) || (c1 != nullptr && stages != 3)) return (int)cudaErrorInvalidValue;
   switch (stages) {
-    case 0: return (int)dispatch<0>(dtype, x, weights, biases, out, B, H, W, s);
-    case 1: return (int)dispatch<1>(dtype, x, weights, biases, out, B, H, W, s);
-    case 2: return (int)dispatch<2>(dtype, x, weights, biases, out, B, H, W, s);
-    case 3: return (int)dispatch<3>(dtype, x, weights, biases, out, B, H, W, s);
+    case 0: return (int)dispatch<0>(dtype, x, weights, biases, out, c1, c2, B, H, W, s);
+    case 1: return (int)dispatch<1>(dtype, x, weights, biases, out, c1, c2, B, H, W, s);
+    case 2: return (int)dispatch<2>(dtype, x, weights, biases, out, c1, c2, B, H, W, s);
+    case 3:
+      return (int)(c1 != nullptr ? dispatch<3, true>(dtype, x, weights, biases, out, c1, c2, B, H, W, s)
+                                 : dispatch<3>(dtype, x, weights, biases, out, c1, c2, B, H, W, s));
     default: return (int)cudaErrorInvalidValue;
   }
 }

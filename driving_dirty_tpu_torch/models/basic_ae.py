@@ -10,9 +10,10 @@ kept; `mask_all_six` masks any position. The constructor's fallbacks
 The masked view and the DenseBlocks' dropout come from the `generator`
 given to `forward` / `loss` (or an explicit `view`), so two runs fed the
 same generator state draw the same. The encoder's conv trunk is kernel B1
-on the card; under autograd its backward recomputes the plain trunk, which
-is also the step's remat of the encoder (the JAX package wraps the encoder
-in jax.checkpoint). Downstream models take only the encoder
+on the card; under autograd B1-save keeps c1 and c2 for the backward
+kernel B1-bwd, which recomputes nothing (the JAX package wraps the encoder
+in jax.checkpoint and recomputes it; the port keeps what plain autograd
+keeps). Downstream models take only the encoder
 (`build_encoder`, models/pretrained.py). `cache_dir` wraps the datasets in
 the decode-once sample cache (data/cache.py); `add_model_specific_args`
 gives the CLI's flags, whose defaults (hidden 256) differ from the

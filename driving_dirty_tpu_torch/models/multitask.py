@@ -15,9 +15,9 @@ so once the encoder trains, autograd adds the two gradients into the one
 trunk output of the op of kernels/trunk.py:trunk. `freeze_mask` freezes the
 pretrained encoder before `unfreeze_epoch_no` (default 20; a 0 also reads
 as 20, as in the JAX package). The JAX package's `remat` hparam
-(jax.checkpoint over the encoder) has no separate counterpart: the trunk's
-backward already recomputes the plain trunk, and the CLI accepts `--remat`
-(cli/common.py). `param_sharding_rules` are the JAX package's: rm_head
+(jax.checkpoint over the encoder) has no counterpart: the trunk's forward
+(B1-save) keeps c1 and c2 for its backward kernel (B1-bwd), which
+recomputes nothing, and the CLI accepts `--remat` (cli/common.py). `param_sharding_rules` are the JAX package's: rm_head
 column-parallel and the encoder's fc1.fc row-parallel over 'model'; the box
 head replicates.
 """

@@ -110,10 +110,11 @@ class MemoryLoader:
 def _launch_counts() -> dict:
     from driving_dirty_tpu_torch.kernels.raster import raster
     from driving_dirty_tpu_torch.kernels.roialign import roialign, roialign_backward
-    from driving_dirty_tpu_torch.kernels.trunk import trunk
+    from driving_dirty_tpu_torch.kernels.trunk import trunk, trunk_bwd
 
     return {"trunk": trunk.launches, "raster": raster.launches, "roialign": roialign.launches,
-            "roialign_backward": roialign_backward.launches}
+            "roialign_backward": roialign_backward.launches, "trunk_save": trunk.save_launches,
+            "trunk_bwd": trunk_bwd.launches}
 
 
 def fit_worker(spec: dict) -> dict:

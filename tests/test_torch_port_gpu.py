@@ -16,11 +16,17 @@ another order: 2 to 4 bf16 ulps at the largest output). The box
 rasterizer must equal its plain version exactly: 0 differing pixels, on
 seeded box scenes, on the adversarial set of data/boxes.py and on items of
 more boxes than one staging pass of the span kernel holds. The trunk under
-autograd (its forward the kernel, its backward the plain trunk recomputed)
-must give the gradients of autograd through the plain trunk within 1e-4 of
-max|plain| for a fixed cotangent: both run the same backward on the same
-inputs, and only cuDNN's choice of reduction order can differ between the
-calls (sums of up to 3.7M terms, a few 1e-6 of the largest).
+autograd runs B1-save (the forward kernel, which also writes c1 and c2)
+and B1-bwd (the backward kernel, from those saved tensors); B1-save's c1,
+c2 and c3 within the forward's bars of trunk_stages', and B1-bwd within
+BWD_TOL of max|plain| of trunk_bwd_plain on the same saved tensors (f32
+1e-4: split-TF32 products and f32 sums of up to 3.7M terms in another
+order than cuDNN's, a few 1e-6 of the largest; bf16 2^-6: both round gz2,
+gz1, dx and the weight gradients to bf16 at the same points), bit for bit
+the same on a second launch, and in f32 within 1e-4 of autograd through
+the plain trunk where no c1 / c2 / c3 element's sign differs between the
+two forwards (an element within the forward's rounding of 0 changes a
+mask, and so a whole term of a gradient).
 The int8 trunk kernel (B1-int8) must equal its plain version exactly: 0
 differing elements, since its int32 sums are exact and its epilogue runs
 the plain version's f32 operations one by one (no fma contraction).
@@ -84,6 +90,8 @@ ROI_TOL = 4e-6
 # kernel rounds its f32 sum once (2^-9 of each value): 2^-6.
 ROI_BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
 GRAD_TOL = 1e-4
+BWD_TOL = {"float32": GRAD_TOL, "bfloat16": 2.0 ** -6}
+NAMES = ("x", "w1", "b1", "w2", "b2", "w3", "b3")
 
 
 @pytest.mark.gpu
@@ -173,9 +181,12 @@ def test_raster_kernel_equals_plain_on_gpu(size):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 256, 1836, 3), (3, 37, 101, 3)])
-def test_trunk_function_gradients_match_plain_on_gpu(shape, dtype):
-    """x and all six parameters, for a fixed cotangent; B1 launches once,
-    in the forward only."""
+def test_trunk_function_gradients_match_plain_on_gpu(shape, dtype, monkeypatch):
+    """x and all six parameters, for a fixed cotangent: B1-save launches
+    once and B1-bwd once, and neither trunk_plain nor trunk_stages runs on
+    a card tensor; the gradients are B1-bwd's on the forward's saved
+    tensors, within BWD_TOL of trunk_bwd_plain on them, and in f32 within
+    GRAD_TOL of autograd through the plain trunk where no sign differs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
@@ -184,23 +195,81 @@ def test_trunk_function_gradients_match_plain_on_gpu(shape, dtype):
     b = [t.clone().requires_grad_() for t in (x, *ws)]
     g = torch.randn((shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, 32),
                     generator=torch.Generator(device="cuda").manual_seed(1), device="cuda").to(x.dtype)
-    launches = K.trunk.launches
+    plain, stages = K.trunk_plain, K.trunk_stages
+    on_card = []
+
+    def counted(fn):
+        def call(*args):
+            on_card.append(any(t.is_cuda for t in args))
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(K, "trunk_plain", counted(plain))
+    monkeypatch.setattr(K, "trunk_stages", counted(stages))
+    launches = K.trunk.launches, K.trunk.save_launches, K.trunk_bwd.launches
     out = K.trunk(*a)
-    assert "driving_dirty_trunk" in type(out.grad_fn).__name__  # the op's backward: trunk_vjp
+    assert "driving_dirty_trunk_train" in type(out.grad_fn).__name__  # B1-save; its backward B1-bwd
     out.backward(g)
-    K.trunk_plain(*b).backward(g)
     torch.cuda.synchronize()
-    assert K.trunk.launches == launches + 1
-    for s, t in zip(a, b):
-        assert s.grad.shape == t.grad.shape and torch.isfinite(s.grad).all()
-        err = (s.grad.float() - t.grad.float()).abs().max().item()
-        assert err <= GRAD_TOL * t.grad.float().abs().max().item()
+    assert (K.trunk.launches, K.trunk.save_launches, K.trunk_bwd.launches) == tuple(n + 1 for n in launches)
+    assert not any(on_card)
+    monkeypatch.undo()
+    with torch.no_grad():
+        c3, c1, c2 = K.trunk_train_op(x, *ws)
+    assert torch.equal(c3, out)
+    ref = K.trunk_bwd_plain(g, x, *ws, c1, c2, c3, (True,) * 7)
+    for name, s, r in zip(NAMES, a, ref):
+        assert s.grad.shape == r.shape and s.grad.dtype == r.dtype and torch.isfinite(s.grad).all(), name
+        err = (s.grad.float() - r.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * r.float().abs().max().item(), name
+    K.trunk_plain(*b).backward(g)
+    flips = sum(int(((s > 0) != (t > 0)).sum()) for s, t in zip((c1, c2, c3), K.trunk_stages(x, *ws)))
+    if dtype == "float32" and flips == 0:
+        for name, s, t in zip(NAMES, a, b):
+            err = (s.grad - t.grad).abs().max().item()
+            assert err <= GRAD_TOL * t.grad.abs().max().item(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 9, 14, 3), (3, 37, 101, 3), (40, 64, 96, 3), (2, 17, 1836, 3)])
+def test_trunk_save_and_backward_kernels_match_plain_on_gpu(shape, dtype):
+    """B1-save's c1, c2 and c3 against trunk_stages (odd H and W, partial
+    tiles, more tiles than one wave); B1-bwd against trunk_bwd_plain on the
+    same saved tensors for every gradient subset that training and the
+    tests ask for, bit for bit the same on a second launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    x, ws = _trunk_inputs(shape, dtype)
+    g = torch.randn((shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, 32),
+                    generator=torch.Generator(device="cuda").manual_seed(2), device="cuda").to(x.dtype)
+    with torch.no_grad():
+        saved = K.trunk_train_op(x, *ws)
+    for got, ref in zip(saved, (K.trunk_stages(x, *ws)[-1], *K.trunk_stages(x, *ws)[:2])):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype] * ref.float().abs().max().item()
+    c3, c1, c2 = saved
+    for needs in ((True,) * 7, (False,) + (True,) * 6, (False,) * 5 + (True, True), (True,) + (False,) * 6):
+        launches = K.trunk_bwd.launches
+        got = K.trunk_bwd(g, x, *ws, c1, c2, c3, needs)
+        again = K.trunk_bwd(g, x, *ws, c1, c2, c3, needs)
+        ref = K.trunk_bwd_plain(g, x, *ws, c1, c2, c3, needs)
+        torch.cuda.synchronize()
+        assert K.trunk_bwd.launches == launches + 2
+        for name, s, t, r, need in zip(NAMES, got, again, ref, needs):
+            assert (s is None) == (not need), name
+            if need:
+                assert torch.equal(s, t), name
+                err = (s.float() - r.float()).abs().max().item()
+                assert err <= BWD_TOL[dtype] * r.float().abs().max().item(), (name, needs)
 
 
 @pytest.mark.gpu
 def test_adam_steps_lay_out_the_trunk_weights_once_per_step_on_gpu():
     """Each Adam step writes the weights in place: the next forward must
-    lay them out anew (once) and launch B1 once; the backward launches none."""
+    lay them out anew (once) and launch B1 once, and the backward lay out
+    B1-bwd's dgrad weights anew (once) and launch B1-bwd once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from driving_dirty_tpu_torch.models.basic_ae import BasicAE
@@ -211,20 +280,22 @@ def test_adam_steps_lay_out_the_trunk_weights_once_per_step_on_gpu():
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     images = torch.randint(0, 256, (2, 6, 16, 306, 3), dtype=torch.uint8, device="cuda", generator=gen)
     for _ in range(3):
-        launches, calls = K.trunk.launches, K.prepare_weights.calls
+        launches, calls = (K.trunk.launches, K.trunk_bwd.launches), (K.prepare_weights.calls,
+                                                                     K.prepare_bwd_weights.calls)
         opt.zero_grad()
         loss, _ = model.loss(images, train=True, generator=gen)
         loss.backward()
         opt.step()
         torch.cuda.synchronize()
         assert torch.isfinite(loss)
-        assert K.trunk.launches == launches + 1 and K.prepare_weights.calls == calls + 1
+        assert (K.trunk.launches, K.trunk_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+        assert (K.prepare_weights.calls, K.prepare_bwd_weights.calls) == (calls[0] + 1, calls[1] + 1)
 
 
 @pytest.mark.gpu
 def test_trainer_fit_launches_the_trunk_every_step_and_its_checkpoint_loads_on_cpu(tmp_path, monkeypatch):
     """Trainer.fit of a TINY BasicAE on the card: 3 steps and one validation
-    batch launch B1 4 times (the backward launches none), and the
+    batch launch B1 4 times and B1-bwd 3 times (once a step), and the
     checkpoint it writes loads into a CPU model with the same weights."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -239,11 +310,11 @@ def test_trainer_fit_launches_the_trunk_every_step_and_its_checkpoint_loads_on_c
     h = dict(link=str(tmp_path / "data"), hidden_dim=8, latent_dim=8, batch_size=2, samples_per_scene=4,
              num_unlabeled_scenes=3, output_img_freq=0)
     model = BasicAE(h, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
-    launches = K.trunk.launches
+    launches = K.trunk.launches, K.trunk_bwd.launches
     r = Trainer(max_epochs=1, limit_train_batches=3, limit_val_batches=1, log_every_n_steps=1,
                 default_root_dir=str(tmp_path / "logs"), enable_progress_bar=False).fit(model)
     torch.cuda.synchronize()
-    assert K.trunk.launches == launches + 4
+    assert (K.trunk.launches, K.trunk_bwd.launches) == (launches[0] + 4, launches[1] + 3)
     assert np.isfinite(r.best_val_loss)
     blob = ckpt_io.load(r.last_ckpt_path)
     assert blob["meta"]["global_step"] == 3 and "torch_generator_cuda" in blob["extra"]
@@ -679,14 +750,14 @@ def _box_batch(name, seed=0, b=4):
 
 def _launches():
     torch.cuda.synchronize()
-    return K.trunk.launches, R.raster.launches
+    return K.trunk.launches, R.raster.launches, K.trunk_bwd.launches
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["spatial_bb", "multitask"])
 def test_box_training_step_matches_the_plain_kernels_on_gpu(name, monkeypatch):
     """One training step with the encoder trainable: B1 and B2 launch once
-    each, the backward none; loss, gradients (c3's from the box head, and
+    each, and B1-bwd once in the backward; loss, gradients (c3's from the box head, and
     in multitask from both heads) and targets against the plain kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -706,7 +777,7 @@ def test_box_training_step_matches_the_plain_kernels_on_gpu(name, monkeypatch):
 
     before = _launches()
     loss, grads = step()
-    assert _launches() == (before[0] + 1, before[1] + 1)
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2] + 1)
     targets = spatial_bb.box_targets(batch, model.raster_size)
     with monkeypatch.context() as m:
         m.setattr("driving_dirty_tpu_torch.nn.autoencoder.trunk", K.trunk_plain)
@@ -733,7 +804,8 @@ def test_box_training_step_matches_the_plain_kernels_on_gpu(name, monkeypatch):
 def test_box_tasks_launch_the_kernels_as_counted_on_gpu(name):
     """B1 once and B2 once (never for bb_mlp) a training step and a
     validation batch; log_images (the spatial tasks) once each, on one
-    scene; the backward launches none."""
+    scene; B1-bwd once a training step (nothing is frozen), never in
+    validation or log_images."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     model = _box_task(name)
@@ -742,14 +814,14 @@ def test_box_tasks_launch_the_kernels_as_counted_on_gpu(name):
     before = _launches()
     loss, _ = model.loss(batch, train=True, generator=torch.Generator(device="cuda").manual_seed(1))
     loss.backward()
-    assert _launches() == (before[0] + 1, before[1] + rasters)
+    assert _launches() == (before[0] + 1, before[1] + rasters, before[2] + 1)
     before = _launches()
     metrics = model.val_metrics(batch)
-    assert _launches() == (before[0] + 1, before[1] + rasters) and torch.isfinite(metrics["val_loss"])
+    assert _launches() == (before[0] + 1, before[1] + rasters, before[2]) and torch.isfinite(metrics["val_loss"])
     before = _launches()
     images = model.log_images(batch, "val")
     if name.startswith("spatial"):
-        assert _launches() == (before[0] + 1, before[1] + 1)
+        assert _launches() == (before[0] + 1, before[1] + 1, before[2])
         size = model.raster_size
         assert images["val_target_bbs"].shape == images["val_pred_bbs"].shape == (size, size, 1)
     else:
@@ -904,7 +976,7 @@ def test_two_ranks_sharing_the_card_take_the_one_process_step_on_gpu(tmp_path, m
     for name, ranks in (("one", 1), ("two", 2)):
         s = dict(spec, trainer=dict(spec["trainer"], default_root_dir=str(tmp_path / name)))
         out = [launch.fit_worker(s)] if ranks == 1 else launch.spawn(launch.fit_worker, 2, (s,), device="cuda:0")
-        assert [o["launches"]["trunk"] for o in out] == [1] * ranks
+        assert [(o["launches"]["trunk"], o["launches"]["trunk_bwd"]) for o in out] == [(1, 1)] * ranks
         path = next((tmp_path / name).glob("basic_ae/version_*/tb/metrics.jsonl"))
         losses[name] = next(json.loads(x)["train_loss"] for x in path.read_text().splitlines() if "train_loss" in x)
     assert abs(losses["two"] - losses["one"]) <= 1e-4 * abs(losses["one"]), losses

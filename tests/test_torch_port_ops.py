@@ -56,7 +56,7 @@ def _nms_args(seed=0, b=2, k=60):
 
 
 def test_every_op_is_registered_in_one_namespace():
-    assert sorted(ops.OPS) == ["nms", "roialign", "trunk", "trunk_int8"]
+    assert sorted(ops.OPS) == ["nms", "roialign", "trunk", "trunk_bwd", "trunk_int8", "trunk_train"]
     for name in ops.OPS:
         assert hasattr(torch.ops.driving_dirty, name)
 
@@ -118,7 +118,7 @@ def test_fakes_give_shapes_and_dtypes_of_odd_sizes():
 
 
 def test_trunk_op_gradients_equal_plain_autograd():
-    """The op's backward (trunk_vjp) gives ordinary autograd's gradients
+    """The trunk's backward (trunk_train's, trunk_bwd_plain on the CPU) gives ordinary autograd's gradients
     through trunk_plain bit for bit, for the inputs that ask, and none for
     the others."""
     needs = (True, True, False, True, True, False, True)

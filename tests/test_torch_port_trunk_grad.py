@@ -1,10 +1,11 @@
 """The trunk under autograd (kernels/trunk.py:trunk, the op
-`torch.ops.driving_dirty.trunk`) against the JAX package's trunk
+`torch.ops.driving_dirty.trunk_train`) against the JAX package's trunk
 gradients, on the CPU.
 
-On a CPU tensor the op's forward is `trunk_plain` (on the card it is the
-B1 kernel's launch); its backward (`trunk_vjp`) recomputes `trunk_plain`
-and differentiates it, as pallas/trunk.py's custom VJP runs
+Under autograd `trunk` calls the op `torch.ops.driving_dirty.trunk_train`:
+on a CPU tensor its forward is `trunk_stages` (on the card B1-save, which
+also writes c1 and c2), and its backward `trunk_bwd_plain` on the saved
+tensors (on the card B1-bwd), where pallas/trunk.py's custom VJP runs
 jax.vjp(xla_trunk).
 The reference is jax.grad of pallas/trunk.py:xla_trunk for a seeded
 cotangent, with the same numpy weights (HWIO there, OIHW here).
@@ -71,26 +72,36 @@ def test_function_gradients_match_jax_grad_of_xla_trunk(shape):
 
 
 def test_function_equals_ordinary_autograd_and_forwards_once(monkeypatch):
-    """The op's forward runs once a call, and its backward runs no forward
-    of its own, only the recompute of `trunk_plain` that it differentiates
-    (on the card: B1 launches once a step); values and gradients equal plain
-    autograd through trunk_plain bit for bit, for the inputs that ask."""
+    """The op's forward runs once a call (its stages, which it saves), and
+    its backward runs no forward: `trunk_bwd_plain` once on the saved
+    tensors and never `trunk_plain` (on the card: B1-save launches once a
+    step, B1-bwd once); values and gradients equal plain autograd through
+    trunk_plain bit for bit, for the inputs that ask."""
     x, params, g = _inputs((2, 9, 14, 3), seed=1)
+    plain, stages, bwd_plain = K.trunk_plain, K.trunk_stages, K.trunk_bwd_plain
     calls = []
 
-    def counted(*args):
-        calls.append(torch.is_grad_enabled())  # the forward runs with grad off, the recompute with it on
-        return trunk_plain(*args)
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls.append((name, torch.is_grad_enabled()))  # the forward runs with grad off
+            return fn(*args, **kwargs)
+        return call
 
-    monkeypatch.setattr(K, "trunk_plain", counted)
+    def refuse(*args):
+        raise AssertionError("the trunk's backward recomputed trunk_plain")
+
+    monkeypatch.setattr(K, "trunk_plain", refuse)
+    monkeypatch.setattr(K, "trunk_stages", counted("stages", stages))
+    monkeypatch.setattr(K, "trunk_bwd_plain", counted("bwd", bwd_plain))
     needs = (False, True, True, False, True, True, True)
     a = _torch_args(x, params, needs)
     out = trunk(*a)
-    assert calls == [False]
+    assert calls == [("stages", False)]
     out.backward(torch.from_numpy(g))
-    assert calls == [False, True]
+    assert [name for name, _ in calls] == ["stages", "bwd"]
+    monkeypatch.undo()
     b = _torch_args(x, params, needs)
-    ref = trunk_plain(*b)
+    ref = plain(*b)
     ref.backward(torch.from_numpy(g))
     assert torch.equal(out, ref)
     for name, s, t, need in zip(NAMES, a, b, needs):
