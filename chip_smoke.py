@@ -124,10 +124,14 @@
    the trunk's training kernels at [8, 256, 1836, 3] and [8, 800, 800, 3]
    in f32 and bf16: B1-save's c1, c2 and c3 against trunk_stages (TOL),
    B1-bwd against trunk_bwd_plain on the same saved tensors for all seven
-   gradients (BWD_TOL), bit-equal over two launches, and the times of
-   B1-save, B1-bwd, their plain versions and the library calls (cuDNN's
-   conv chain; its three convolution_backward calls) by CUDA events beside
-   the bounds; then the trunk under autograd at [8, 256, 1836, 3] f32
+   gradients (scripts/probe_trunk_bwd.py:BWD_TOL), bit-equal over two
+   launches, and the times of B1-save, B1-bwd, their plain versions and
+   the library calls (cuDNN's conv chain; its three convolution_backward
+   calls) by CUDA events beside the bounds, and B1-bwd's pass split
+   (scripts/probe_trunk_bwd.py: the needs subsets dW3, dW2 and dW1, each
+   held against trunk_bwd_plain and bit-equal over two launches, then
+   timed, beside the whole kernel's time on training's gradients); then
+   the trunk under autograd at [8, 256, 1836, 3] f32
    (B1-save forward, B1-bwd backward: one launch each, no plain version on
    the card) against autograd through the plain trunk for x and the six
    parameters, with the count of c1 / c2 / c3 elements whose sign differs
@@ -251,14 +255,14 @@
    (parallel/launch.py), which they share over gloo, the one layout one
    card allows: gloo's all_reduce, all_gather and broadcast of CUDA
    tensors checked; the decoder's widest dropout draw for the global batch
-   and for a rank's half timed; BasicAE dp=2 (3 steps, dropout and the
+   and for a rank's half timed; BasicAE dp=2 (2 steps, dropout and the
    six-to-one mask on), roadmap_bce frozen dp=1 x tp=2 (3 steps, its
    shards' shapes checked), multitask dp=2 (2 steps, B2 in each rank's
    loss) and spatial_rm dp=1 x tp=2 over step 8's BasicAE (3 steps, the
    reference geometry, its heads' convs cut on their output channels and
    their activations gathered over 'model', its shards' shapes checked;
-   cuDNN's default algorithms on both sides, the replicated up_conv_5's
-   gradient averaged over 'model' once a step), full
+   the replicated up_conv_5's gradient averaged over 'model' once a
+   step), every fit on both sides under deterministic algorithms, full
    width, each against the one-process run of the same global batches
    from the same seed within MESH_LOSS_TOL, one gradient sum a step on
    every data rank, every rank's final weights equal and rank 0's within
@@ -352,6 +356,8 @@ from driving_dirty_tpu_torch.ops.coords import aabb_to_corners
 from driving_dirty_tpu_torch.ops.maps import raster_geometry
 from driving_dirty_tpu_torch.ops.stitch import normalize_images, wide_stitch
 from driving_dirty_tpu_torch.scripts import probe_trunk_int8_variants as int8_probe
+from driving_dirty_tpu_torch.scripts.probe_trunk_bwd import BWD_NAMES, TRAIN_NEEDS, hold_subset, pass_split
+from driving_dirty_tpu_torch.scripts.probe_trunk_bwd import library_backward as trunk_bwd_library
 from driving_dirty_tpu_torch.scripts.probe_trunk_variants import device_line, probe_inputs, run_probe
 from driving_dirty_tpu_torch.data.pipeline import tree_map
 from driving_dirty_tpu_torch.parallel import launch
@@ -376,6 +382,9 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, "tf32": 495e12, torch.bfloat16: 989e12, "int8": 1979e12}
 F32_PRODUCTS = 3  # TF32 products per f32 product in the f32 trunk (split TF32)
 TRUNK_DESIGN = {torch.float32: "split-tf32 mma.sync.m16n8k8", torch.bfloat16: "mma.sync.m16n8k16"}
+TRUNK_BWD_DESIGN = {torch.float32: "split-tf32 mma.sync.m16n8k8, two CTAs an SM",
+                    torch.bfloat16: "bf16 mma.sync.m16n8k16 with ldmatrix.trans weight gradients, a cp.async ring "
+                                    "of two stages, warp-specialized CTAs of 8 warps, one an SM"}
 
 # Trunk kernel vs plain version, max |error| <= TOL * max|plain| (no floor:
 # the outputs here are well below 1, so an absolute floor would let a wrong
@@ -538,18 +547,9 @@ LR = 1e-3
 # forward keeps and the other zeroes changes its mask, and so a whole term
 # of dx nearby and of a weight gradient (one of 1e3 .. 1e6 terms that
 # cancel to about sqrt(n) of one), so where signs differ the errors are
-# printed with the count, not held (B1-bwd's own bar is BWD_TOL below).
+# printed with the count, not held (B1-bwd's own bar is BWD_TOL, with its
+# reasons in scripts/probe_trunk_bwd.py).
 GRAD_TOL = 1e-4
-# B1-bwd against trunk_bwd_plain on the same saved tensors (the same masks),
-# max |error| <= BWD_TOL * max|plain| per gradient: f32 GRAD_TOL (split-TF32
-# products and f32 sums in another order than cuDNN's f32 backward, sums of
-# up to 3.7M terms: within 1e-5 of the largest entry at both main-path
-# shapes in this script's runs); bf16 2^-6 (both round gz2, gz1, dx and the weight
-# gradients to bf16 at the same points, from f32 sums in another order: a
-# few bf16 ulps of the largest value).
-BWD_TOL = {torch.float32: GRAD_TOL, torch.bfloat16: 2.0 ** -6}
-TRAIN_NEEDS = (False,) + (True,) * 6  # an unfrozen encoder's gradients: x asks for none
-BWD_NAMES = ("x", "w1", "b1", "w2", "b2", "w3", "b3")
 # Losses of the kernel run against the plain-kernel run from one init, with
 # the same masked views and dropout masks: the first step's loss (no update
 # yet) differs only by the trunk's split-TF32 forward, a few 1e-6 of c3:
@@ -1929,29 +1929,6 @@ def nchw(t):
     return t.permute(0, 3, 1, 2)
 
 
-def trunk_bwd_library(g3, x, params, c1, c2, c3):
-    """The yardstick of B1-bwd: cuDNN's three convolution_backward calls
-    for training's gradients (no dx) on channels-last views, each on its
-    conv's output gradient, which is computed here first. -> a function
-    that makes the three calls. Timed only; the port never calls it."""
-    aten = torch.ops.aten
-    ws = [w.to(x.dtype) for w in params[0::2]]
-    gz3 = aten.threshold_backward(nchw(g3), nchw(c3), 0)
-    g2 = aten.convolution_backward(gz3, nchw(c2), ws[2], [32], [2, 2], [1, 1], [1, 1], False, [0, 0], 1,
-                                   [True, False, False])[0]
-    gz2 = aten.threshold_backward(g2, nchw(c2), 0)
-    g1 = aten.convolution_backward(gz2, nchw(c1), ws[1], [32], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
-                                   [True, False, False])[0]
-    gz1 = aten.threshold_backward(g1, nchw(c1), 0)
-    calls = ((gz3, c2, ws[2], 2, [True, True, True]), (gz2, c1, ws[1], 1, [True, True, True]),
-             (gz1, x, ws[0], 1, [False, True, True]))
-
-    def library():
-        for gz, act, w, stride, mask in calls:
-            aten.convolution_backward(gz, nchw(act), w, [32], [stride] * 2, [1, 1], [1, 1], False, [0, 0], 1, mask)
-    return library
-
-
 def sign_flips(saved, plain) -> int:
     """Elements of c1, c2 and c3 that one forward keeps (> 0) and the other
     zeroes."""
@@ -1976,19 +1953,9 @@ def trunk_training_kernels(gen) -> list[dict]:
         flips = sign_flips((c1, c2, c3), plain)
         del plain
         bwd_errs = {}
-        for needs in ((True,) * 7, TRAIN_NEEDS):
-            got = trunk_bwd(g3, x, *params, c1, c2, c3, needs)
-            again = trunk_bwd(g3, x, *params, c1, c2, c3, needs)
-            ref = trunk_bwd_plain(g3, x, *params, c1, c2, c3, needs)
-            for name, a, b2, r, need in zip(BWD_NAMES, got, again, ref, needs):
-                if not need:
-                    continue
-                if not torch.equal(a, b2):
-                    raise RuntimeError(f"B1-bwd {name} {label}: two launches gave different gradients")
-                rec = hold(f"B1-bwd {name} {label}{'' if needs[0] else ' (training: no dx)'}, bit-equal over "
-                           f"two launches", a, r, BWD_TOL[dtype])
+        for needs, what in (((True,) * 7, "all"), (TRAIN_NEEDS, "training: no dx")):
+            for name, rec in hold_subset(g3, x, params, c1, c2, c3, needs, f"{label} ({what})").items():
                 bwd_errs.setdefault(name, rec)
-            del got, again, ref
         with torch.no_grad():
             save_ms = cuda_ms(lambda: trunk_train_op(x, *params))
             stages_ms = cuda_ms(lambda: trunk_stages(x, *params))
@@ -1996,6 +1963,7 @@ def trunk_training_kernels(gen) -> list[dict]:
         bwd_ms = cuda_ms(lambda: trunk_bwd(g3, x, *params, c1, c2, c3, TRAIN_NEEDS))
         bwd_plain_ms = cuda_ms(lambda: trunk_bwd_plain(g3, x, *params, c1, c2, c3, TRAIN_NEEDS))
         bwd_library_ms = cuda_ms(trunk_bwd_library(g3, x, params, c1, c2, c3))
+        split = pass_split(g3, x, params, c1, c2, c3)  # each subset held first (hold_subset)
         common = {"route": "cuda", "path": path, "shape": list(x.shape), "dtype": str(dtype)[6:],
                   "design": TRUNK_DESIGN[dtype]}
         bound = trunk_bound(x, save=True)
@@ -2010,19 +1978,24 @@ def trunk_training_kernels(gen) -> list[dict]:
         records.append({
             "name": "trunk_bwd", "source": "driving_dirty_tpu_torch/csrc/trunk_bwd.cu",
             "replaces": "driving_dirty_tpu/pallas/trunk.py:303 (_fused_trunk_vjp_bwd: jax.vjp(xla_trunk))",
-            **common, "design": "mma.sync.m16n8k8 " + ("split TF32" if dtype == torch.float32 else
-                                                       "TF32 on bf16 operands"),
+            **common, "design": TRUNK_BWD_DESIGN[dtype],
             "max_abs_err": max(r["max_abs_err"] for r in bwd_errs.values()),
             "max_abs_err_by_gradient": {k: r["max_abs_err"] for k, r in bwd_errs.items()},
             "tol_by_gradient": {k: r["tol"] for k, r in bwd_errs.items()},
             "ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": bwd_library_ms,
-            "needs": "training (w1, b1, w2, b2, w3, b3)", **bound, "roofline_share": bound["bound_ms"] / bwd_ms})
+            "needs": "training (w1, b1, w2, b2, w3, b3)", **bound, "roofline_share": bound["bound_ms"] / bwd_ms,
+            "split_ms": {k: v["ms"] for k, v in split.items()},
+            "split_max_abs_err": {k: v["max_abs_err"] for k, v in split.items()}})
         print(f"B1-save {label}: {save_ms:.3f} ms, plain (trunk_stages) {stages_ms:.3f} ms, library (cuDNN chain) "
               f"{chain_ms:.3f} ms, bound {records[-2]['bound_ms']:.3f} ms ({records[-2]['bound_by']}); c1/c2/c3 "
               f"sign flips against the plain forward {flips}", flush=True)
         print(f"B1-bwd {label} (training's gradients): {bwd_ms:.3f} ms, plain (trunk_bwd_plain) {bwd_plain_ms:.3f} "
               f"ms, library (cuDNN's three convolution_backward) {bwd_library_ms:.3f} ms, bound "
               f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), share {bound['bound_ms'] / bwd_ms:.3f}", flush=True)
+        print(f"B1-bwd split {label} by needs subset (scripts/probe_trunk_bwd.py), ms: "
+              + ", ".join(f"{k} {v['ms']:.4f}" for k, v in split.items())
+              + f"; the whole kernel (training) {bwd_ms:.4f}, plain {bwd_plain_ms:.4f}, cuDNN {bwd_library_ms:.4f}, "
+              f"bound {bound['bound_ms']:.4f}", flush=True)
         del x, params, g3, c1, c2, c3
         torch.cuda.empty_cache()
     return records
@@ -3493,7 +3466,7 @@ def deploy_phase(tmp: Path, smi: str) -> dict:
 # against the uninterrupted 2-rank run within RESUME_TOL. Two ranks on one
 # card give no scaling figure.
 MESH_RANKS = 2
-MESH_RUNS = (("basic_ae", 3, 1), ("roadmap_bce", 3, 2), ("multitask", 2, 1),
+MESH_RUNS = (("basic_ae", 2, 1), ("roadmap_bce", 3, 2), ("multitask", 2, 1),
              ("spatial_rm", 3, 2))  # (task, steps, model axis)
 MESH_RASTER = ("multitask", "spatial_rm")  # the runs whose loss rasterizes its targets (B2)
 MESH_ENCODER_TRAINS = ("basic_ae",)  # the runs whose encoder trains (B1-bwd); the others freeze it in epoch 0
@@ -3516,8 +3489,9 @@ MESH_SHARDS = {"roadmap_bce": {"encoder.fc1.fc.weight": [128, 470016], "fc1.weig
 # The tp runs that train a replicated parameter (spatial_rm's up_conv_5, 8
 # -> 1; roadmap_bce trains only its cut fc1): Adam averages its gradient
 # over 'model' once a step (collectives.py:mean_over_model), so the ranks'
-# copies stay bit-equal under cuDNN's default algorithms, which need not
-# give two ranks the same bits for the same inputs
+# copies stay bit-equal also under cuDNN's default algorithms, which need
+# not give two ranks the same bits for the same inputs (held on the CPU by
+# tests/test_torch_port_spatial_tp.py with gradients that differ so)
 MESH_REPLICATED = ("spatial_rm",)
 MESH_CLI_STEPS, MESH_CLI_STOP = 4, 2
 # Losses against one process's, relative, at every step: the same math on
@@ -3535,7 +3509,12 @@ MESH_LOSS_TOL = (1e-4, 1e-4)
 # 0.248: its first Adam steps move by +-lr the weights whose gradient is
 # float noise, and the sum order picks the sign; its bar is 0.5, and what holds
 # its ranks to the global gradient is the count of sums and the ranks'
-# equal weights, with the losses.
+# equal weights, with the losses. Every fit, the ranks' and the one
+# process's, runs under deterministic algorithms, as the resumed runs do
+# (RESUME_TOL): under cuDNN's default ones two runs of one process on the
+# same batches end as far apart as tp=2 and one process do (up_conv_1's
+# weight most of it), and spatial_rm's tp=2 read 1.2e-5 to 1.113e-4 from
+# run to run, a bar that measured cuDNN's order of sums, not the mesh's.
 MESH_STATE_TOL = {"basic_ae": 0.5, "roadmap_bce": 1e-4, "multitask": 1e-4, "spatial_rm": 1e-4}
 
 
@@ -3556,10 +3535,12 @@ def gloo_cuda_probe() -> dict:
 
 
 def mesh_rank(specs: list) -> list:
-    """A spawned rank: TF32 off as in every phase, then each spec's fit."""
+    """A spawned rank: TF32 off as in every phase, then each spec's fit
+    under deterministic algorithms (see MESH_STATE_TOL)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    return [launch.fit_worker(spec) for spec in specs]
+    with deterministic_algorithms():
+        return [launch.fit_worker(spec) for spec in specs]
 
 
 def mesh_specs(tmp: Path, ae_ckpt: Path) -> list:
@@ -3640,7 +3621,9 @@ def mesh_phase(tmp: Path, smi: str, ae_ckpt: Path) -> dict:
     for i, (spec, (name, steps, model)) in enumerate(zip(specs, MESH_RUNS)):
         root = spec["trainer"]["default_root_dir"]
         losses, step_ms = mesh_losses(root, spec["task"].name)
-        one = launch.fit_worker(dict(spec, model_parallel=1, trainer=dict(spec["trainer"], default_root_dir=root + "_one")))
+        with deterministic_algorithms():
+            one = launch.fit_worker(dict(spec, model_parallel=1,
+                                         trainer=dict(spec["trainer"], default_root_dir=root + "_one")))
         one_losses, one_ms = mesh_losses(root + "_one", spec["task"].name)
         label = f"mesh {name} dp={MESH_RANKS // model} x tp={model}"
         expect(f"{label} steps", len(losses), steps)

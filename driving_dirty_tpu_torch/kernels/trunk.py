@@ -38,7 +38,8 @@ positions to device memory (csrc/trunk.cu: save_stage), or `trunk_stages`
 on the CPU; its backward is `torch.ops.driving_dirty.trunk_bwd`
 (`trunk_bwd_op`): B1-bwd (csrc/trunk_bwd.cu, `trunk_bwd`), which computes
 every gradient autograd asks for from x, the weights and the saved c1, c2
-and c3 with no recompute, or its plain version `trunk_bwd_plain` (autograd's
+and c3 with no recompute (bf16 natively on the tensor cores, f32 by split
+TF32), or its plain version `trunk_bwd_plain` (autograd's
 own threshold_backward and convolution_backward calls) on the CPU. The
 JAX package leaves this backward to XLA (pallas/trunk.py's custom VJP runs
 jax.vjp(xla_trunk)). B1-bwd takes its weights transposed and tap-flipped
@@ -211,15 +212,16 @@ def _dx_fragments(d):
 
 
 def prepare_bwd_weights(ws, dtype):
-    """B1-bwd's weights for activations of `dtype`: one f32 buffer [W1 |
-    W2 | W3] of each conv weight transposed and tap-flipped, d[ky'][kx'][o]
-    [i] = w[o][i][2 - ky'][2 - kx'] (the transposed conv as a correlation),
-    with the values `dtype` rounds the weights to (as prepare_weights). W2
-    and W3 in the float32 fragment order of `_fragments` (K = (tap', o),
-    N = i), W1 in `_dx_fragments`' order. The kernel runs TF32 products in
-    both dtypes, so the order is float32's for bf16 too. Counts its builds
-    in `prepare_bwd_weights.calls`."""
-    d = [w.detach().to(dtype).float().flip(2, 3).permute(2, 3, 0, 1) for w in ws]
+    """B1-bwd's weights for activations of `dtype`: one buffer of `dtype`
+    [W1 | W2 | W3] of each conv weight transposed and tap-flipped,
+    d[ky'][kx'][o][i] = w[o][i][2 - ky'][2 - kx'] (the transposed conv as a
+    correlation), with the values `dtype` rounds the weights to (as
+    prepare_weights). W2 and W3 in the fragment order of `_fragments` for
+    `dtype` (K = (tap', o), N = i): m16n8k8 TF32 for float32, m16n8k16 for
+    bfloat16, whose kernels multiply bf16 natively; W1 in `_dx_fragments`'
+    order (the dx pass widens bf16 to TF32). Counts its builds in
+    `prepare_bwd_weights.calls`."""
+    d = [w.detach().to(dtype).flip(2, 3).permute(2, 3, 0, 1) for w in ws]
     prepare_bwd_weights.calls += 1
     return torch.cat([_dx_fragments(d[0]), _fragments(d[1]), _fragments(d[2])]).contiguous()
 
@@ -355,9 +357,10 @@ def trunk_bwd(g3, x, w1, b1, w2, b2, w3, b3, c1, c2, c3, needs):
     B1-bwd (csrc/trunk_bwd.cu) on the current stream, adding one to
     `trunk_bwd.launches`; on a CPU tensor `trunk_bwd_plain`.
 
-    The kernel takes contiguous g3, c1, c2 and c3 in x's dtype and returns
-    the weight and bias gradients rounded to x's dtype once (summed in f32),
-    in the parameters' dtypes; dx in x's dtype."""
+    The kernel takes contiguous g3, c1, c2 and c3 in x's dtype, at
+    addresses that are multiples of 16 B (its tile copies move 16 B at a
+    time), and returns the weight and bias gradients rounded to x's dtype
+    once (summed in f32), in the parameters' dtypes; dx in x's dtype."""
     needs = [bool(n) for n in needs]
     if len(needs) != 7:
         raise ValueError(f"trunk_bwd takes 7 needs flags, got {len(needs)}")
@@ -370,9 +373,10 @@ def trunk_bwd(g3, x, w1, b1, w2, b2, w3, b3, c1, c2, c3, needs):
     b, h, w, _ = x.shape
     shapes = {"g3": (b, *out_hw(h, w), C), "c3": (b, *out_hw(h, w), C), "c1": (b, h, w, C), "c2": (b, h, w, C)}
     for name, t in (("g3", g3), ("c3", c3), ("c1", c1), ("c2", c2)):
-        if tuple(t.shape) != shapes[name] or t.dtype != x.dtype or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"trunk_bwd takes a contiguous {name} {shapes[name]} of {x.dtype} on {x.device}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if (tuple(t.shape) != shapes[name] or t.dtype != x.dtype or t.device != x.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"trunk_bwd takes a contiguous, 16-B aligned {name} {shapes[name]} of {x.dtype} on "
+                             f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
     flags = (needs[0] | (needs[1] or needs[2]) << 1 | (needs[3] or needs[4]) << 2
              | (needs[5] or needs[6]) << 3)
     dx = torch.empty_like(x) if needs[0] else None

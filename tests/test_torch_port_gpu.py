@@ -232,12 +232,19 @@ def test_trunk_function_gradients_match_plain_on_gpu(shape, dtype, monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(1, 9, 14, 3), (3, 37, 101, 3), (40, 64, 96, 3), (2, 17, 1836, 3)])
+@pytest.mark.parametrize("shape", [(1, 9, 14, 3), (3, 37, 101, 3), (40, 64, 96, 3), (2, 17, 1836, 3),
+                                   (1, 23, 50, 3), (7, 100, 300, 3), (1, 256, 1836, 3)])
 def test_trunk_save_and_backward_kernels_match_plain_on_gpu(shape, dtype):
     """B1-save's c1, c2 and c3 against trunk_stages (odd H and W, partial
     tiles, more tiles than one wave); B1-bwd against trunk_bwd_plain on the
-    same saved tensors for every gradient subset that training and the
-    tests ask for, bit for bit the same on a second launch."""
+    same saved tensors for every gradient subset that training, the tests
+    and the pass split of scripts/probe_trunk_bwd.py ask for, bit for bit
+    the same on a second launch. (1, 23, 50, 3) ends in ragged tiles of
+    both bf16 passes in H and W (16 x 16 c1 / c2 tiles, 8 x 16 c3 tiles);
+    on the H100's 132 SMs (one CTA each in bf16, two in f32) (7, 100, 300,
+    3) gives each pass a tile count that is no multiple of the grid times
+    the two ring stages (931 and 490 bf16 tiles), so CTAs walk odd and even
+    numbers of tiles; (1, 256, 1836, 3) is one image at the main width."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
@@ -250,7 +257,8 @@ def test_trunk_save_and_backward_kernels_match_plain_on_gpu(shape, dtype):
         assert got.shape == ref.shape and got.dtype == ref.dtype
         assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype] * ref.float().abs().max().item()
     c3, c1, c2 = saved
-    for needs in ((True,) * 7, (False,) + (True,) * 6, (False,) * 5 + (True, True), (True,) + (False,) * 6):
+    for needs in ((True,) * 7, (False,) + (True,) * 6, (False,) * 5 + (True, True), (True,) + (False,) * 6,
+                  (False,) * 3 + (True, True, False, False), (False, True, True) + (False,) * 4):
         launches = K.trunk_bwd.launches
         got = K.trunk_bwd(g, x, *ws, c1, c2, c3, needs)
         again = K.trunk_bwd(g, x, *ws, c1, c2, c3, needs)

@@ -150,12 +150,13 @@ def test_plain_backward_of_an_empty_batch_is_zero():
 
 
 def _dgrad_b(frag):
-    """Read the B operand of a 32 -> 32 dgrad (36 k-steps of m16n8k8) as the
-    kernel does: k-step s, n-pair p, lane (g, tg) loads the uint4 at
-    (2s + p) * 32 + 4g + tg, whose floats are (b0, b1) of n-tile 2p and of
-    2p + 1, b_e = B[8s + tg + 4e][8 (2p + tile) + g]. -> B [288, 32]."""
-    f = frag.numpy().reshape(-1, 4)
-    b = np.zeros((288, 32), np.float32)
+    """Read the B operand of a 32 -> 32 dgrad in float32 (36 k-steps of
+    m16n8k8) as the kernel does: k-step s, n-pair p, lane (g, tg) loads the
+    uint4 at (2s + p) * 32 + 4g + tg, whose floats are (b0, b1) of n-tile 2p
+    and of 2p + 1, b_e = B[8s + tg + 4e][8 (2p + tile) + g]. frag: a 1-D
+    numpy array. -> B [288, 32] of its dtype."""
+    f = frag.reshape(-1, 4)
+    b = np.zeros((288, 32), frag.dtype)
     for s in range(36):
         for p in range(2):
             for g in range(8):
@@ -167,11 +168,33 @@ def _dgrad_b(frag):
     return b
 
 
+def _dgrad_b16(frag):
+    """Read the B operand of a 32 -> 32 dgrad in bfloat16 (18 k-steps of
+    m16n8k16) as the kernel does: k-step s, n-pair p, lane (g, tg) loads the
+    uint4 at (2s + p) * 32 + 4g + tg, whose eight bf16 values are, for
+    n-tile 2p and then 2p + 1, b0 = B[16s + 2tg + e][n] and b1 = B[16s + 8 +
+    2tg + e][n] (e = 0, 1), n = 8 (2p + tile) + g. frag: a 1-D numpy array.
+    -> B [288, 32] of its dtype."""
+    f = frag.reshape(-1, 8)
+    b = np.zeros((288, 32), frag.dtype)
+    for s in range(18):
+        for p in range(2):
+            for g in range(8):
+                for tg in range(4):
+                    word = f[(2 * s + p) * 32 + 4 * g + tg]
+                    for tile in range(2):
+                        for half in range(2):
+                            for e in range(2):
+                                b[16 * s + 8 * half + 2 * tg + e, 8 * (2 * p + tile) + g] = word[4 * tile + 2 * half + e]
+    return b
+
+
 def _dx_b(frag):
-    """The dx B operand as the kernel reads it: the float2 at 32 s + 4g + tg
-    is (B[8s + tg][g], B[8s + tg + 4][g]), N = 8. -> B [288, 8]."""
-    f = frag.numpy().reshape(-1, 2)
-    b = np.zeros((288, 8), np.float32)
+    """The dx B operand as the kernel reads it: the pair at 32 s + 4g + tg
+    is (B[8s + tg][g], B[8s + tg + 4][g]), N = 8. frag: a 1-D numpy array.
+    -> B [288, 8] of its dtype."""
+    f = frag.reshape(-1, 2)
+    b = np.zeros((288, 8), frag.dtype)
     for s in range(36):
         for g in range(8):
             for tg in range(4):
@@ -179,24 +202,52 @@ def _dx_b(frag):
     return b
 
 
+def _decode(layout, dgrad):
+    """(W1's dx B [288, 8], W2's and W3's dgrad B [288, 32]) from a
+    prepare_bwd_weights layout given as a 1-D numpy array."""
+    parts = np.split(layout, (2304, 2304 + 9216))
+    return [_dx_b(parts[0])] + [dgrad(part) for part in parts[1:]]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dgrad_layout_decodes_to_the_flipped_transposed_weights(dtype):
     """B[k = (ky', kx', o)][n = i] must be w[o][i][2 - ky'][2 - kx'], in
     the values `dtype` rounds the weights to; W1's N = 3 is padded with
-    zeros to 8."""
+    zeros to 8. The layout is in `dtype`: m16n8k8 fragments for float32,
+    m16n8k16 fragments of bf16 values for bfloat16."""
     _, params, _ = _inputs((1, 4, 4, 3), seed=8)
     ws = _torch(x=np.zeros((1, 4, 4, 3), np.float32), params=params)[1::2]
     layout = K.prepare_bwd_weights(ws, dtype)
-    assert layout.dtype == torch.float32 and layout.shape == (2304 + 2 * 9216,)
-    parts = torch.split(layout, (2304, 9216, 9216))
-    for part, w in zip(parts, ws):
+    assert layout.dtype == dtype and layout.shape == (2304 + 2 * 9216,)
+    decoded = _decode(layout.float().numpy(), _dgrad_b if dtype == torch.float32 else _dgrad_b16)
+    for b, w in zip(decoded, ws):
         wr = w.to(dtype).float().numpy()
         cin = wr.shape[1]
-        b = _dx_b(part) if cin == 3 else _dgrad_b(part)
         for k in range(288):
             tap, o = divmod(k, 32)
             ky, kx = divmod(tap, 3)
             np.testing.assert_array_equal(b[k, :cin], wr[o, :, 2 - ky, 2 - kx])
+        assert not b[:, cin:].any()
+
+
+def test_bf16_layout_holds_the_weights_as_bf16_rounds_them():
+    """The bf16 layout's bits, decoded as the kernels read them, are those
+    of torch's rounding of each f32 weight to bf16 (to nearest, ties to
+    even; ties and values a bf16 holds exactly included), bit for bit."""
+    _, params, _ = _inputs((1, 4, 4, 3), seed=11)
+    ws = _torch(x=np.zeros((1, 4, 4, 3), np.float32), params=params)[1::2]
+    ties = torch.tensor([1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, -(2.0 ** -3) * (1 + 2.0 ** -8), 0.5, -0.0])
+    for w in ws:
+        w.view(-1)[:ties.numel()] = ties  # ties to even round down, then up; exact values stay
+    assert ws[1].view(-1)[:2].to(torch.bfloat16).float().tolist() == [1.0, 1 + 2.0 ** -6]
+    bits = K.prepare_bwd_weights(ws, torch.bfloat16).view(torch.int16).numpy()
+    for b, w in zip(_decode(bits, _dgrad_b16), ws):
+        want = w.to(torch.bfloat16).view(torch.int16).numpy()
+        cin = want.shape[1]
+        for k in range(288):
+            tap, o = divmod(k, 32)
+            ky, kx = divmod(tap, 3)
+            np.testing.assert_array_equal(b[k, :cin], want[o, :, 2 - ky, 2 - kx])
         assert not b[:, cin:].any()
 
 
